@@ -3,9 +3,9 @@ positions to match a target image.
 
 Perturbs the hero sphere's position, then recovers it by minimizing MSE
 against the target render.  Gradients (including the vis_w silhouette
-boundary terms) flow through the FUSED PALLAS VJP KERNEL on TPU
-(raytpu/kernels/gradkernel.py) and the hand-structured XLA adjoint on
-CPU — the same `render_grad(..., vis_w=...)` surface either way.  Run:
+boundary terms) flow through the hand-structured XLA adjoint
+(raytpu/adjoint.py) behind `render_grad(..., vis_w=...)`; on a GPU the
+forward is the Pallas engine.  Run:
 
     python examples/inverse_render.py [--steps 60] [--out-dir /tmp] \
         [--size 400x200] [--checkpoint opt.npz]
@@ -47,46 +47,24 @@ def make_problem(shift=(0.12, 0.0, 0.08), size=(96, 48)):
 
 
 def optimize(cfg, scene, cam, target, steps=120, lr=0.05, vis_w=0.005,
-             checkpoint=None, bvh=None, rebuild_every=16):
+             checkpoint=None):
     """Normalized gradient descent on sphere centers; silhouette
     gradients (vis_w) supply the visibility term that pure interior
-    gradients lack.  On TPU the loss+gradient is ONE fused VJP kernel
-    dispatch (render_grad -> gradkernel); on CPU the XLA adjoint.
-
-    ``bvh``: large-scene acceleration — the boxes are REFIT to the
-    moving geometry every step (raytpu.bvh.refit; jit-shared with the
-    step, so the whole loop stays one compiled graph).
-
-    ``rebuild_every`` (default 16): host-rebuild the tree every K steps
-    so the PARTITIONING tracks drifted geometry, not just the boxes.
-    Measured (scripts/probe_rebuild_r5.py, one v5e, config-4 scene,
-    random small-sphere drift): culling decays 4.62 -> 7.81 leaves/
-    tile-step by drift 4.0 under refit alone; a fresh build recovers
-    ~4.5% of tests (7.46) — most of the decay is inherent to de-cohered
-    geometry, so rebuilds are a cheap floor-holder, not a cure.  The
-    native builder costs ~26 ms, amortized ~1.6 ms/step at K = 16
-    (~1% of a config-4 step).  0 disables."""
+    gradients lack.  Each step is one jitted render_grad: the engine's
+    forward (a GPU; golden on the CPU) and the XLA adjoint's backward."""
     from raytpu.render import render_grad
-    from raytpu import bvh as bvh_mod
 
     @jax.jit
-    def step(scene, lr, bvh_s):
+    def step(scene, lr):
         s_loss, _, (sg, _) = render_grad(scene, cam, cfg, target,
-                                         vis_w=vis_w, bvh=bvh_s)
+                                         vis_w=vis_w)
         g = sg.center
         gn = g / (jnp.linalg.norm(g) + 1e-12)
         return scene._replace(center=scene.center - lr * gn), s_loss
 
-    refit = jax.jit(bvh_mod.refit) if bvh is not None else None
     losses = []
     for i in range(steps):
-        if bvh is not None and rebuild_every and i and i % rebuild_every == 0:
-            # periodic host REBUILD restores culling quality once the
-            # geometry has drifted far from the original layout (refit
-            # keeps correctness in between; see raytpu/bvh.py)
-            bvh = bvh_mod.build_bvh(scene, leaf_size=bvh.leaf_size or 64)
-        bvh_s = refit(bvh, scene) if bvh is not None else None
-        scene, loss = step(scene, lr, bvh_s)
+        scene, loss = step(scene, lr)
         losses.append(float(loss))
         lr *= 0.96
         if checkpoint and (i + 1) % 20 == 0:
@@ -100,11 +78,11 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=120)
     p.add_argument("--out-dir", default=".")
     p.add_argument("--size", default="96x48",
-                   help="WxH; use 400x200 for the kernel-speed TPU run")
+                   help="WxH; 400x200 is BASELINE config 3's size")
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--final-scene", action="store_true",
                    help="recover positions in the 500-sphere final "
-                        "scene (BVH-accelerated, refit every step)")
+                        "scene")
     args = p.parse_args(argv)
     w, h = (int(v) for v in args.size.split("x"))
 
@@ -116,25 +94,22 @@ def main(argv=None):
         scene_true = raytpu.final_world()
         cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0),
                                  vfov=20.0, aspect=cfg.aspect)
-        from raytpu.bvh import build_bvh
-        bvh = build_bvh(scene_true)
-        target = raytpu.render(scene_true, cam, cfg, bvh=bvh)
+        target = raytpu.render(scene_true, cam, cfg)
         scene0 = scene_true._replace(
             center=scene_true.center + _jnp.float32(0.05))
     else:
         cfg, scene_true, scene0, cam, target = make_problem(size=(w, h))
-        bvh = None
     io.save_png(os.path.join(args.out_dir, "target.png"), target)
     io.save_png(os.path.join(args.out_dir, "initial.png"),
-                raytpu.render(scene0, cam, cfg, bvh=bvh))
+                raytpu.render(scene0, cam, cfg))
 
     err0 = float(jnp.linalg.norm(scene0.center[1] - scene_true.center[1]))
     scene, losses = optimize(cfg, scene0, cam, target, steps=args.steps,
-                             checkpoint=args.checkpoint, bvh=bvh)
+                             checkpoint=args.checkpoint)
     err1 = float(jnp.linalg.norm(scene.center[1] - scene_true.center[1]))
 
     io.save_png(os.path.join(args.out_dir, "recovered.png"),
-                raytpu.render(scene, cam, cfg, bvh=bvh))
+                raytpu.render(scene, cam, cfg))
     print(f"loss {losses[0]:.3e} -> {losses[-1]:.3e}   "
           f"position error {err0:.4f} -> {err1:.4f}")
     return 0 if (losses[-1] < 0.3 * losses[0] and err1 < 0.5 * err0) else 1

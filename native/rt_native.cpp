@@ -1,7 +1,7 @@
 // raytpu native runtime — host-side C++ components.
 //
 // The reference's native surface is its C++ host layer (device management,
-// scene construction — CSVersion/DxCSApp.cpp); the TPU framework's host
+// scene construction — CSVersion/DxCSApp.cpp); the framework's host
 // runtime is JAX, but the host-side *build* work that sits in front of the
 // device (BVH construction over large scenes) is implemented natively here
 // and exposed through a C ABI consumed via ctypes (raytpu/native.py).

@@ -40,8 +40,15 @@ from raytpu.config import RenderConfig
 from raytpu.scene import Scene
 from raytpu.golden import (
     _dot3, _normalize3, _reflect, _refract, _schlick, _sky, _to_gamma,
-    hit_world, _INF,
+    hit_world, inv_extent, _INF,
 )
+
+
+def segment_sum(idx, vals, n: int):
+    """Per-sphere sums of per-ray rows: ``vals`` (P, k) added at the
+    sphere index ``idx`` (any shape, P elements) -> (n, k).  XLA lowers
+    the scatter-add to atomics on the GPU."""
+    return jax.ops.segment_sum(vals, idx.reshape(-1), num_segments=n)
 
 
 def _gather_leaves(scene: Scene, idx):
@@ -320,17 +327,10 @@ def _trace_bwd(depth, t_min, vis_w, scatter_mode, saved, ct):
         (n_ro, n_rd, n_thr, g_gathered) = vjp(ct_out)
 
         gc, gr, ga, gp = g_gathered
-        # segment-sum as ONE one-hot product: TPU scatter-add serializes;
-        # a single (N, P) x (P, 8) contraction amortizes the P-reduction
-        # across every sphere attribute (profiling showed 4 separate
-        # products cost 4x the reduce time)
         n = scene.count
-        oh = jax.nn.one_hot(idx.reshape(-1), n, dtype=jnp.float32,
-                            axis=0)                       # (N, P)
-        k8 = jnp.concatenate([
+        g8 = segment_sum(idx, jnp.concatenate([
             gc.reshape(-1, 3), ga.reshape(-1, 3),
-            gr.reshape(-1, 1), gp.reshape(-1, 1)], axis=-1)   # (P, 8)
-        g8 = oh @ k8                                       # (N, 8)
+            gr.reshape(-1, 1), gp.reshape(-1, 1)], axis=-1), n)
         g_center = g_center + g8[:, 0:3]
         g_albedo = g_albedo + g8[:, 3:6]
         g_radius = g_radius + g8[:, 6]
@@ -363,11 +363,9 @@ def _trace_bwd(depth, t_min, vis_w, scatter_mode, saved, ct):
                 gcy = f * (2 * a * ocy - 2 * hb * dy)
                 gcz = f * (2 * a * ocz - 2 * hb * dz)
                 grr = f * (2 * a * R)
-                ohb = jax.nn.one_hot(sel_idx.reshape(-1), n,
-                                     dtype=jnp.float32, axis=0)
-                dgc = ohb @ jnp.stack(
+                dgc = segment_sum(sel_idx, jnp.stack(
                     [gcx.reshape(-1), gcy.reshape(-1), gcz.reshape(-1),
-                     grr.reshape(-1)], axis=-1)
+                     grr.reshape(-1)], axis=-1), n)
                 return dgc[:, :3], dgc[:, 3]
 
             # hit side: losing coverage changes this sample from its
@@ -438,16 +436,17 @@ def _trace_bwd(depth, t_min, vis_w, scatter_mode, saved, ct):
 trace_adjoint.defvjp(_trace_fwd, _trace_bwd)
 
 
-# -- full-frame adjoint renderer --------------------------------------------
+# -- frame and slab adjoint renderers ----------------------------------------
 
 def render_pixels_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
                           px, py, vis_w: float = 0.0):
-    """golden.render_pixels with the hand-structured trace adjoint."""
+    """golden.render_pixels with the hand-structured trace adjoint
+    (sequential RNG: one seed chained through a pixel's samples)."""
     seed = rng.pixel_seed(px.astype(jnp.uint32), py.astype(jnp.uint32))
     fx = px.astype(jnp.float32)
     fy = py.astype(jnp.float32)
-    inv_w = jnp.float32(1.0 / (cfg.width - 1))
-    inv_h = jnp.float32(1.0 / (cfg.height - 1))
+    inv_w = inv_extent(cfg.width)
+    inv_h = inv_extent(cfg.height)
     zero = fx * 0.0
 
     def sample(carry, _):
@@ -469,28 +468,24 @@ def render_pixels_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
         _to_gamma(acc_b * inv_spp, cfg.gamma)
 
 
-@functools.partial(jax.jit, static_argnums=(2, 3))
-def render_golden_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
-                          vis_w: float = 0.0):
-    """Full-frame render whose backward uses the hand-structured adjoint.
+def _pad_to(x, m):
+    pad = (-x.shape[0]) % m
+    return jnp.concatenate([x, jnp.broadcast_to(x[-1], (pad,))]) if pad \
+        else x
 
-    Forward values equal render_golden up to f32 reassociation; gradients
-    equal jax.grad-of-golden (same detach policy) at O(P*depth) backward
-    cost instead of O(P*depth*N).  ``vis_w > 0`` adds silhouette
-    gradients for geometry optimization (see trace_adjoint).
+
+def render_flat_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
+                        px, py, vis_w: float = 0.0):
+    """Flat (n,) pixel coordinates -> (n, 3) colors whose backward is the
+    hand-structured adjoint.  Chunked over pixels with ``lax.map``.
 
     In the "parallel" RNG mode spp folds into the ray batch (every
-    (pixel, sample) pair is an independent slot — no sequential seed
+    (pixel, sample) pair is an independent slot, no sequential seed
     chain), removing the spp scan from both sweeps.
     """
-    h, w = cfg.height, cfg.width
-    n = h * w
+    n = px.shape[0]
     if cfg.rng_mode != "parallel":
         chunk = min(cfg.chunk_pixels, n)
-        pad = (-n) % chunk
-        flat = jnp.arange(n + pad, dtype=jnp.int32)
-        px = flat % w
-        py = jnp.minimum(flat // w, h - 1)
 
         def do_chunk(xy):
             r, g, b = render_pixels_adjoint(scene, cam, cfg, xy[0], xy[1],
@@ -498,10 +493,10 @@ def render_golden_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
             return jnp.stack([r, g, b], axis=-1)
 
         chunks = jax.lax.map(
-            do_chunk, (px.reshape(-1, chunk), py.reshape(-1, chunk)))
-        return chunks.reshape(-1, 3)[:n].reshape(h, w, 3)
+            do_chunk, (_pad_to(px, chunk).reshape(-1, chunk),
+                       _pad_to(py, chunk).reshape(-1, chunk)))
+        return chunks.reshape(-1, 3)[:n]
 
-    # -- parallel mode: one slot per (pixel, sample)
     spp = cfg.spp
     slots = n * spp
     chunk = min(max(cfg.chunk_pixels, 131072), slots)
@@ -509,10 +504,8 @@ def render_golden_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
     slot = jnp.arange(slots + pad, dtype=jnp.int32)
     pix = jnp.minimum(slot // spp, n - 1)
     smp = (slot % spp).astype(jnp.uint32)
-    px = pix % w
-    py = pix // w
-    inv_w = jnp.float32(1.0 / (w - 1))
-    inv_h = jnp.float32(1.0 / (cfg.height - 1))
+    inv_w = inv_extent(cfg.width)
+    inv_h = inv_extent(cfg.height)
 
     def do_chunk(args):
         cpx, cpy, cs = args
@@ -532,8 +525,33 @@ def render_golden_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
 
     sums = jax.lax.map(
         do_chunk,
-        (px.reshape(-1, chunk), py.reshape(-1, chunk),
+        (px[pix].reshape(-1, chunk), py[pix].reshape(-1, chunk),
          smp.reshape(-1, chunk)))
     lin = sums.reshape(-1, 3)[:slots].reshape(n, spp, 3)
     lin = jnp.sum(lin, axis=1) * jnp.float32(1.0 / spp)
-    return _to_gamma(lin, cfg.gamma).reshape(h, w, 3)
+    return _to_gamma(lin, cfg.gamma)
+
+
+def render_rows_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
+                        row0, rows: int, vis_w: float = 0.0):
+    """Rows [row0, row0 + rows) of the cfg frame -> (rows, W, 3), with
+    the adjoint backward.  ``row0`` may be traced (sharded train step)."""
+    w = cfg.width
+    flat = jnp.arange(rows * w, dtype=jnp.int32)
+    px = flat % w
+    py = row0 + flat // w
+    return render_flat_adjoint(scene, cam, cfg, px, py, vis_w).reshape(
+        rows, w, 3)
+
+
+@functools.partial(jax.jit, static_argnums=(2, 3))
+def render_golden_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
+                          vis_w: float = 0.0):
+    """Full-frame render whose backward uses the hand-structured adjoint.
+
+    Forward values equal render_golden up to f32 reassociation; gradients
+    equal jax.grad-of-golden (same detach policy) at O(P*depth) backward
+    cost instead of O(P*depth*N).  ``vis_w > 0`` adds silhouette
+    gradients for geometry optimization (see trace_adjoint).
+    """
+    return render_rows_adjoint(scene, cam, cfg, 0, cfg.height, vis_w)

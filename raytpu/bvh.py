@@ -2,22 +2,19 @@
 reference has no acceleration structure; its hit_world is a brute-force
 loop over all spheres, CSVersion/ShaderCompute.hlsl:188-205).
 
-Design, TPU-first (SURVEY.md §7 hard-part 4):
+Design (SURVEY.md §7 hard-part 4):
 
 - **Host-side median-split build** over sphere centroids (numpy; a native
   C++ builder can swap in behind the same layout for very large scenes).
 - **Flattened preorder + skip pointers** ("threaded" BVH): one array of
   nodes in DFS preorder; a hit on an interior node falls through to
   ``node + 1``; a miss jumps to ``skip``.  Traversal is a single while
-  loop with NO stack and NO per-lane pointer chasing.
-- **Tile-coherent traversal** in the Pallas kernel: all (8, 128) rays of a
-  tile walk the tree together; a node is entered if ANY live ray in the
-  tile intersects its bbox (a lane-reduce), and leaf spheres are then
-  tested by every lane.  This trades per-ray work for zero gathers —
-  the right trade on a VPU with no vectorized gather.  Primary-ray tiles
-  are coherent so subtree culling is effective; worst-case (fully
-  incoherent tiles) degrades gracefully toward brute force plus cheap
-  bbox tests.
+  loop with NO stack.
+
+No renderer consumes the BVH today: the GPU engine's closest hit is a
+brute-force sweep.  The layout, the refit and the numpy reference
+traversal are kept for a GPU traversal kernel, in which each thread can
+walk its own ray.
 
 Layout: ``nodes`` is (M, 9) f32 — rows
 ``[min_x, min_y, min_z, max_x, max_y, max_z, start, count, skip]``;
@@ -202,16 +199,12 @@ def build_bvh(scene: Scene, leaf_size: int = 64, pad: float = 1e-4,
     -heuristic builder (16 bins/axis; requires the native library,
     falling back to median otherwise).
 
-    **Median is the measured default** (round 4, scripts/probe_sah.py
-    on one v5e chip, config-4 scene, megakernel + wavefront, leaf 32 and
-    64, outlier split on/off): SAH lost every cell — best SAH 45.6 vs
-    median 50.0 Mrays/s (megakernel leaf 64).  Under TILE-coherent
-    traversal the frame cost scales with *leaves entered per tile
-    step*, and SAH's better-balanced tree makes MORE leaves for the
-    same cap (11-12 vs 8), while its headline win (isolating the giant
-    ground sphere) is already taken by ``split_outliers``.  Per-ray
-    test-count arguments do not transfer to (8,128)-lane union
-    traversal.
+    **Median is the default**: an earlier accelerator's tile-coherent
+    traversal measured SAH slower in every cell it tried, because SAH's
+    better-balanced tree makes more leaves for the same cap while its
+    headline win (isolating the giant ground sphere) is already taken
+    by ``split_outliers``.  A per-ray GPU traversal has to measure it
+    again.
 
     Uses the native C++ builder (native/rt_native.cpp via ctypes) when
     available — same algorithm, bit-identical output, ~100x faster for
@@ -225,18 +218,13 @@ def build_bvh(scene: Scene, leaf_size: int = 64, pad: float = 1e-4,
     ``pad_leaves`` (default) pads every leaf to exactly ``leaf_size``
     entries with can't-hit dummies so kernels statically unroll the
     leaf loop; median splits leave real leaf sizes in
-    (leaf_size/2, leaf_size], so the dummy overhead is small.  The
-    default leaf 64 is the round-2 500-sphere sweep optimum for the
-    persistent-refill megakernel (33 vs 30 Mrays/s at 32; incoherent
-    refill tiles enter most leaves anyway, so coarser leaves mean
-    fewer bbox/cond steps); the sorted wavefront slightly prefers 32.
+    (leaf_size/2, leaf_size], so the dummy overhead is small.
     Padded BVHs additionally store 8 octant-ordered node copies
     (``nodes`` becomes (8*M, 9), see :func:`_octant_orders`) for
     front-to-back traversal.
 
     ``split_outliers`` (default, padded BVHs only) keeps outlier-huge
-    spheres (radius > 10x the median, the same rule as the wavefront's
-    sort-key bbox) OUT of the tree: they ride the TAIL of ``perm`` and
+    spheres (radius > 10x the median) OUT of the tree: they ride the TAIL of ``perm`` and
     kernels test them unconditionally before the walk.  A giant ground
     sphere would otherwise (a) blow up its leaf's bbox so every ray
     enters those ``leaf_size`` sphere tests, and (b) under SAH land in

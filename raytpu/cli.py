@@ -6,7 +6,7 @@ headless CLI:
 
     python -m raytpu.cli render --scene random --width 1024 --height 576 \
         --spp 60 --depth 50 --out frame.png
-    python -m raytpu.cli render --scene final --bvh --progressive 16 \
+    python -m raytpu.cli render --scene final --progressive 16 \
         --checkpoint ckpt.npz --resume --out final.png
     python -m raytpu.cli gradcheck
     python -m raytpu.cli info
@@ -62,21 +62,8 @@ def cmd_render(args) -> int:
     scene = _build_scene(args.scene, args.seed, args.scene_file)
     cam = _build_camera(args, cfg.aspect)
 
-    bvh = None
-    if args.bvh:
-        from raytpu.render import _backend
-        # --devices > 1 always renders through the sharded pallas path
-        eff = ("pallas" if getattr(args, "devices", 1) > 1
-               else _backend(args.backend, bvh=True))
-        if eff not in ("pallas", "wavefront"):
-            # consistent on both paths: the golden oracle is brute-force
-            # by design, so a silently ignored --bvh would misreport what
-            # was measured (ADVICE round 1)
-            raise SystemExit(
-                "--bvh requires the pallas or wavefront backend")
-        from raytpu.bvh import build_bvh
-        bvh = build_bvh(scene, builder=args.bvh_builder)
-
+    from raytpu.render import _backend
+    backend = _backend(args.backend, args.interpret)
     mesh = None
     if args.devices > 1:
         import jax
@@ -84,32 +71,19 @@ def cmd_render(args) -> int:
         if len(jax.devices()) < args.devices:
             raise SystemExit(f"--devices {args.devices}: only "
                              f"{len(jax.devices())} devices available")
-        if args.backend not in ("auto", "pallas"):
-            raise SystemExit("--devices > 1 needs the pallas backend")
-        if args.refill or args.spp_batch != 1:
-            # the sharded path would silently drop these wavefront-only
-            # knobs and misreport what was measured (ADVICE round 4 —
-            # same policy as the --bvh misreport check above)
-            raise SystemExit(
-                "--refill/--spp-batch are wavefront-backend knobs and "
-                "are not supported with --devices > 1")
         mesh = shard.make_mesh(jax.devices()[:args.devices])
 
     if args.progressive:
-        import jax
         from raytpu import progressive
-        backend = args.backend
-        if backend == "auto":
-            backend = ("pallas" if jax.devices()[0].platform == "tpu"
-                       or mesh is not None else "golden")
-        if backend == "wavefront" or args.refill:
+        if mesh is not None and backend != "pallas":
             raise SystemExit(
-                "--progressive supports golden/pallas backends")
+                "--progressive with --devices runs the engine: use a GPU, "
+                "or --interpret on the CPU")
         last = None
         for state, img in progressive.render_progressive(
                 scene, cam, cfg, batch=args.progressive,
                 checkpoint_path=args.checkpoint, resume=args.resume,
-                backend=backend, bvh=bvh, mesh=mesh):
+                backend=backend, mesh=mesh, interpret=args.interpret):
             print(f"samples {int(state.samples)}/{cfg.spp}",
                   file=sys.stderr)
             last = img
@@ -132,23 +106,25 @@ def cmd_render(args) -> int:
 
     if mesh is not None:
         from raytpu import shard
-        img, stats = profiling.timed(
-            lambda: shard.render_sharded_pallas(scene, cam, cfg,
-                                                mesh=mesh, bvh=bvh),
-            cfg, label="render")
+        if backend == "pallas":
+            def run():
+                return shard.render_sharded_pallas(
+                    scene, cam, cfg, mesh=mesh, interpret=args.interpret)
+        else:
+            def run():
+                return shard.render_sharded(scene, cam, cfg, mesh=mesh)
     else:
-        img, stats = profiling.timed(
-            lambda: raytpu.render(scene, cam, cfg, backend=args.backend,
-                                  bvh=bvh, spp_batch=args.spp_batch,
-                                  refill=args.refill),
-            cfg, label="render")
+        def run():
+            return raytpu.render(scene, cam, cfg, backend=backend,
+                                 interpret=args.interpret)
+    img, stats = profiling.timed(run, cfg, label="render")
     io.save_image(args.out, img)
     print(f"wrote {args.out}  "
           f"({stats.rays_per_sec / 1e6:.2f} Mrays/s, "
           f"{stats.wall_s * 1e3:.1f} ms)")
     if args.log:
         profiling.log_run(args.log, stats, scene=args.scene,
-                          backend=args.backend)
+                          backend=backend)
     return 0
 
 
@@ -190,9 +166,9 @@ def cmd_gradcheck(args) -> int:
 def cmd_validate(args) -> int:
     """Scene lint + cross-backend consistency sweep (raytpu.debug).
 
-    Exit 0 iff golden is finite, Pallas-interpret is BIT-identical to
-    golden, and (on TPU) the compiled kernel stays inside the f32
-    -scheduling tolerance.  Scene lint findings are reported as
+    Exit 0 iff golden is finite and the engine agrees with it: compiled
+    on a GPU within the f32-scheduling tolerance, BIT-identical in the
+    Pallas interpreter on the CPU.  Scene lint findings are reported as
     warnings, not failures (e.g. random_world's energy-amplifying
     metal albedo is reference-faithful by design)."""
     import raytpu
@@ -205,14 +181,10 @@ def cmd_validate(args) -> int:
                        rng_mode=args.rng_mode)
     scene = _build_scene(args.scene, args.seed, args.scene_file)
     cam = _build_camera(args, cfg.aspect)
-    bvh = None
-    if args.bvh:
-        from raytpu.bvh import build_bvh
-        bvh = build_bvh(scene)
     rep = {"scene_warnings": debug.validate_scene(scene)}
-    rep.update(debug.validate_backends(scene, cam, cfg, bvh=bvh))
+    rep.update(debug.validate_backends(scene, cam, cfg))
     rep["pass"] = bool(rep["golden_finite"]
-                       and rep["interpret_bit_identical"]
+                       and rep.get("interpret_bit_identical", True)
                        and rep.get("compiled_ok", True))
     print(json.dumps(rep))
     return 0 if rep["pass"] else 1
@@ -251,12 +223,13 @@ def main(argv=None) -> int:
     r.add_argument("--vfov", type=float, default=20.0)
     r.add_argument("--aperture", type=float, default=0.0)
     r.add_argument("--focus-dist", type=float, default=None)
-    r.add_argument("--backend",
-                   choices=("auto", "golden", "pallas", "wavefront"),
+    r.add_argument("--backend", choices=("auto", "golden", "pallas"),
                    default="auto",
-                   help="auto = pallas (refill megakernel) on TPU — or "
-                        "wavefront when --spp-batch > 1 requires it — "
-                        "golden elsewhere")
+                   help="auto = pallas (the engine) on a GPU, golden on "
+                        "the CPU")
+    r.add_argument("--interpret", action="store_true",
+                   help="run the engine in the Pallas interpreter "
+                        "(CPU testing)")
     r.add_argument("--gamma", type=float, default=2.2,
                    help="output gamma: 2.2 = v2's pow(1/2.2) "
                         "(ShaderCompute.hlsl:99), 2.0 = v1's sqrt "
@@ -269,20 +242,6 @@ def main(argv=None) -> int:
                    default="sequential",
                    help="sequential = reference-parity seed chain; "
                         "parallel = per-sample streams (faster grads)")
-    r.add_argument("--bvh", action="store_true",
-                   help="build + use a BVH (pallas backend)")
-    r.add_argument("--bvh-builder", choices=("median", "sah"),
-                   default="median",
-                   help="BVH build heuristic (sah = native binned "
-                        "surface-area heuristic)")
-    r.add_argument("--spp-batch", type=int, default=1, metavar="B",
-                   help="wavefront backend + --rng-mode parallel: fold "
-                        "B samples per pixel into the ray array "
-                        "(larger sort groups, faster large scenes)")
-    r.add_argument("--refill", type=int, default=0, metavar="K",
-                   help="wavefront backend + --rng-mode parallel: "
-                        "persistent-refill schedule (in-kernel sample "
-                        "respawn, re-sort every K bounces)")
     r.add_argument("--progressive", type=int, default=0, metavar="BATCH",
                    help="render progressively in BATCH-sample steps")
     r.add_argument("--preview-every", type=int, default=0, metavar="K",
@@ -316,8 +275,6 @@ def main(argv=None) -> int:
     v.add_argument("--scatter-mode", choices=("v2", "v1"), default="v2")
     v.add_argument("--rng-mode", choices=("sequential", "parallel"),
                    default="sequential")
-    v.add_argument("--bvh", action="store_true",
-                   help="sweep the BVH traversal path")
     v.add_argument("--look-from", type=float, nargs=3,
                    default=[13.0, 2.0, 3.0])
     v.add_argument("--look-at", type=float, nargs=3,

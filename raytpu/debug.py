@@ -3,15 +3,15 @@
 The reference's only safety nets are the D3D debug layer and HRESULT
 MessageBoxes (CSVersion/Dx11Base.cpp:69-72 etc.); its one latent fault is
 the oversized dispatch writing out-of-bounds UAV rows that D3D silently
-drops (DxCSApp.cpp:524).  The TPU-native equivalents:
+drops (DxCSApp.cpp:524).  Here:
 
 - :func:`checked_render` — the golden renderer under ``jax.checkify``
   with float checks: NaN/Inf anywhere in the pipeline raises with a
   located error instead of silently propagating black/garbage pixels;
 - :func:`validate_backends` — cross-backend consistency sweep (golden vs
-  Pallas-interpret vs Pallas-compiled where available), the renderer's
-  analogue of a race/miscompile detector: the megakernel's predicated
-  updates and early-exit loop must never change pixel values;
+  the engine: compiled on a GPU, interpreted on the CPU), the renderer's
+  analogue of a race/miscompile detector: the engine's predicated
+  updates and refill loop must never change pixel values;
 - :func:`validate_scene` — host-side scene sanity (finite fields, radii
   != 0, known material ids, in-range IORs).
 """
@@ -78,33 +78,34 @@ def validate_scene(scene: Scene) -> list[str]:
 
 
 def validate_backends(scene: Scene, cam: Camera, cfg: RenderConfig,
-                      atol_compiled: float = 2e-2, bvh=None) -> dict:
+                      atol_compiled: float = 3e-4,
+                      max_outlier_frac: float = 0.05) -> dict:
     """Cross-backend consistency sweep -> report dict.
 
-    golden vs Pallas-interpret must be BIT-identical (same op sequence);
-    compiled Pallas on real TPU hardware may differ by f32 scheduling,
-    bounded by ``atol_compiled`` except on Schlick-branch-flip outliers
-    (reported, not failed).  Pass a BVH to sweep the flat (t, idx)
-    traversal + one-hot extraction path instead of the brute loop.
+    On a GPU the compiled engine is compared with golden on the card:
+    their f32 evaluation orders differ (FMA contraction, scheduling), so
+    a few paths take other branches; the sweep passes while at most
+    ``max_outlier_frac`` of the pixels differ by more than
+    ``atol_compiled`` (the bound chip_smoke.py measures and states).  On
+    the CPU the engine runs in the Pallas interpreter and must be
+    BIT-identical to golden (same op sequence).
     """
     from raytpu.kernels import megakernel
 
     ref = np.asarray(golden.render_golden(scene, cam, cfg))
     report = {"golden_finite": bool(np.isfinite(ref).all())}
-
-    interp = np.asarray(
-        megakernel.render_pallas(scene, cam, cfg, bvh=bvh,
-                                 interpret=True))
-    report["interpret_bit_identical"] = bool(np.array_equal(interp, ref))
-
-    if jax.devices()[0].platform == "tpu":
-        comp = np.asarray(jax.jit(
-            lambda s, c: megakernel.render_pallas(s, c, cfg, bvh=bvh)
-        )(scene, cam))
+    if jax.devices()[0].platform == "gpu":
+        comp = np.asarray(megakernel.render_pallas(scene, cam, cfg))
         diff = np.abs(comp - ref)
         report["compiled_max_diff"] = float(diff.max())
         report["compiled_outlier_frac"] = float(
             (diff > atol_compiled).mean())
         report["compiled_ok"] = bool(
-            (diff > atol_compiled).mean() < 1e-3)
+            np.isfinite(comp).all()
+            and report["compiled_outlier_frac"] <= max_outlier_frac)
+    else:
+        interp = np.asarray(
+            megakernel.render_pallas(scene, cam, cfg, interpret=True))
+        report["interpret_bit_identical"] = bool(
+            np.array_equal(interp, ref))
     return report

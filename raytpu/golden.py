@@ -6,7 +6,7 @@ This is the executable spec of the reference's forward rendering semantics
 golden for the quadratic).  Written SoA over arbitrary pixel-array shapes in
 straight-line jnp with lax.scan loops, so it is (a) trivially auditable
 against the HLSL, (b) reverse-mode differentiable end-to-end, and (c) the
-same code XLA compiles efficiently on TPU as the non-Pallas fallback path.
+same code XLA compiles for the GPU as the non-Pallas path.
 
 Reference quirks preserved (SURVEY.md quirk list — golden.py is the spec):
 - metal always scatters (no "absorbed below surface" check, hlsl:219-227)
@@ -46,6 +46,13 @@ from raytpu.scene import Scene
 # breaks jax.distributed.initialize() in multi-host entry points
 _INF = np.float32(np.inf)
 _SAFE_EPS = np.float32(1e-20)
+
+
+def inv_extent(n: int) -> np.float32:
+    """1 / (n - 1): the reference's jitter scale divides pixel coords by
+    (dim - 1) (hlsl:306-307); a 1-pixel dimension uses 1 instead of a
+    division by zero."""
+    return np.float32(1.0 / max(n - 1, 1))
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -88,7 +95,7 @@ def hit_world(scene: Scene, ro, rd, t_min):
     has_root = disc >= 0
     # Forward value: exact sqrt of the masked disc.  Gradient: from the
     # 1e-20-clamped branch — d sqrt blows up at disc == 0 (tangent ray),
-    # which TPU FMA contraction CAN hit exactly (CPU rounding rarely
+    # which FMA contraction CAN hit exactly (CPU rounding rarely
     # does), turning one grazing bounce-2 hit into NaN grads for every
     # parameter.  Same straight-through guard as adjoint.py:81-84 /
     # gradkernel.py:76-79, so golden autodiff and the hand adjoints
@@ -340,11 +347,11 @@ def accumulate_pixels(scene: Scene, cam: Camera, cfg: RenderConfig,
     """
     fx = px.astype(jnp.float32)
     fy = py.astype(jnp.float32)
-    inv_w = jnp.float32(1.0 / (cfg.width - 1))
-    inv_h = jnp.float32(1.0 / (cfg.height - 1))
+    inv_w = inv_extent(cfg.width)
+    inv_h = inv_extent(cfg.height)
     # input-derived (see trace() varying-axis note); dtype follows the
     # scene so an f64 scene yields an f64 carry (the f64-ground-truth
-    # path of scripts/probe_cam_grad.py — f32 scenes are unchanged)
+    # ground truth for gradient checks — f32 scenes are unchanged)
     zero = (fx * 0.0).astype(scene.center.dtype)
     if init is None:
         init = (zero, zero, zero)

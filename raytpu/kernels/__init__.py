@@ -1,6 +1,6 @@
-"""Pallas TPU kernels — the hot path.
+"""Pallas kernels — the GPU hot path.
 
-The reference's L0 HLSL kernel layer (SURVEY.md §1) rebuilt as Mosaic
--compiled TPU kernels: raygen + intersection + scatter + bounce loop fused
-into one megakernel over (8, 128) pixel tiles (raytpu/kernels/megakernel.py).
+The reference's L0 HLSL kernel layer (SURVEY.md §1) rebuilt as a
+Pallas-Triton kernel: raygen + intersection + scatter + bounce loop fused
+into one engine over blocks of ray lanes (raytpu/kernels/megakernel.py).
 """

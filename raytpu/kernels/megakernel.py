@@ -1,141 +1,82 @@
-"""Fused Pallas path-tracing megakernel.
+"""Pallas-Triton path-tracing engine: the GPU forward.
 
-The whole of the reference's compute-shader kernel
-(ref: CSVersion/ShaderCompute.hlsl:289-315 CSMain driver, :255-287 bounce
-loop, :155-205 intersection, :207-252 materials) as ONE Mosaic-compiled TPU
-kernel over (8, 128) pixel tiles:
+The reference's compute-shader kernel (ref: CSVersion/ShaderCompute.hlsl
+:289-315 CSMain driver, :255-287 bounce loop, :155-205 intersection,
+:207-252 materials) as ONE Triton kernel (``pl.pallas_call(...,
+backend="triton")``):
 
-- one grid step = one (8 sublane x 128 lane) tile of pixels — the TPU
-  analogue of the reference's 32x32 thread group (hlsl:291);
-- all ray state lives in registers/VMEM for the full spp x depth loop: zero
-  HBM traffic between bounces (the XLA fallback round-trips ray state
-  through HBM on every scan step);
-- the bounce loop is a ``lax.while_loop`` running the PERSISTENT-REFILL
-  state machine (default at every scene size since round 3): a lane
-  whose sample terminates immediately respawns its pixel's next sample
-  in-register, and multi-tile grouping lets lanes hop across stacked
-  tiles so the loop's path-length tail is paid once per group (the
-  reference and the golden path always run all ``depth`` iterations
-  per sample);
-- the scene is broadcast to SMEM (the cbuffer analogue, hlsl:12-19) and the
-  closest-hit loop tracks the winning sphere's attributes directly via
-  predicated updates, so there is no gather;
-- RNG is the same counter-based stream as the golden renderer
-  (raytpu/rng.py) over u32 tiles, so images agree with golden to f32
-  rounding (op-for-op the math matches golden.py exactly).
+- one program per power-of-two block of ray lanes, one lane per pixel
+  of a row slab; the grid has far more programs than the card has SMs,
+  blocks run in any order and nothing carries over between them;
+- a lane holds its ray's whole spp x depth life in registers: no ray
+  state goes back to device memory between bounces, and the frame is
+  one launch instead of a scan of per-bounce launches;
+- the sample loop is the PERSISTENT-REFILL state machine: the moment a
+  lane's sample terminates (miss, absorb, depth cap) it spawns its
+  pixel's next sample, so dead lanes do not run empty bounces; a block
+  exits when every lane has spent its spp budget;
+- closest hit is a brute-force sweep over the scene, read as scalars
+  from global memory (it stays in L1/L2: 64 bytes a sphere), carrying
+  only (t, winner index); the winner's attributes are gathered once per
+  bounce;
+- RNG is the counter-based u32 stream of raytpu/rng.py, seeded from
+  absolute pixel coordinates, so a slab or a block renders the same
+  pixels as the whole frame.
 
-Differentiation: ``render_pallas`` carries a ``jax.custom_vjp`` whose
-backward pass re-traces through the golden renderer (identical function,
-so the cotangents are exact for it); a hand-derived backward kernel can
-replace it without touching callers.
+The math is golden.py's, op for op: interpret-mode renders are
+bit-identical to :func:`raytpu.golden.render_golden`.  Compiled on the
+card, Triton's f32 division (``div.full``), libdevice transcendentals
+and FMA contraction differ from XLA's in the last bits, which moves a
+few paths onto other branches; chip_smoke.py states the tolerance.
+
+Differentiation: :func:`render_pallas` carries a ``jax.custom_vjp``
+whose backward is the XLA adjoint's VJP (raytpu/adjoint.py).
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from raytpu import rng, golden
+from raytpu import rng
 from raytpu.camera import Camera
 from raytpu.config import RenderConfig
+from raytpu.golden import inv_extent
 from raytpu.scene import Scene
 
-_TILE_H = 8
-_TILE_W = 128
-# debug escape hatch: comma-list of {depth,spp,nsph,nodes} to bake as
-# static Python trip counts instead of SMEM scalars (bisection tool for
-# Mosaic compile/runtime pathologies; see scripts/bench_tpu.py)
-_STATIC_BOUNDS = frozenset(
-    os.environ.get("RAYTPU_STATIC_BOUNDS", "").split(","))
-# debug: disable the whole-tile early-exit (bounce loop becomes fori)
-_NO_EARLY_EXIT = bool(os.environ.get("RAYTPU_NO_EARLY_EXIT"))
-# debug: comma-list of kernel pieces to stub out when measuring cost
-# {nohit, noscatter, norng}; results are WRONG with any flag set
-_ABLATE = frozenset(os.environ.get("RAYTPU_ABLATE", "").split(","))
-# flat leaf-list traversal kicks in when the tree has at most this many
-# leaves per octant copy (O(L) bbox tests beat the skip-pointer walk's
-# serial scalar chain up to moderate L); RAYTPU_NO_FLAT=1 forces the walk
-_FLAT_MAX_LEAVES = (0 if os.environ.get("RAYTPU_NO_FLAT")
-                    else int(os.environ.get("RAYTPU_FLAT_MAX", "64")))
-# statically unroll the flat leaf loop up to this many leaves (L x
-# leaf_size sphere tests of straight-line code; compile time grows with
-# the product, so the cap is conservative)
-_FLAT_UNROLL_MAX = int(os.environ.get("RAYTPU_FLAT_UNROLL_MAX", "0"))
-# fixed traversal octant (round-4 probe, DEFAULT ON; RAYTPU_FIXED_OCTANT=0
-# reverts): derive the octant-ordered BVH copy ONCE per kernel instance
-# from the tile-center PRIMARY direction (scalar camera math in the
-# prologue) instead of the per-step live-lane majority — removing 4
-# cross-lane reduces per bounce step.  Any octant is CORRECT (it only
-# orders the front-to-back culling); primary-ray steps keep their exact
-# octant, bounced steps lose adaptivity they barely used.  Measured
-# (probe_fixed_octant.py, config-4 @ 100 spp): 524.8 -> 508.0 ms
-# (61.0 -> 63.0 Mrays/s) with culling UNCHANGED (5.10 -> 5.07
-# leaves/step) — the per-step majority pick was pure machinery cost.
-_FIXED_OCTANT = os.environ.get("RAYTPU_FIXED_OCTANT", "1") != "0"
-# with the unrolled sweep: drop the per-leaf any-hit cond entirely and
-# test every leaf unconditionally (bit-identical results — the sphere
-# tests predicate their own winner updates; the cond only skips work).
-# MEASURED DEAD END (round 4, probe_fixed_octant.py with
-# RAYTPU_SWEEP_NOCOND=1): 508.0 -> 535.6 ms config-4 @ 100 spp (-5%).
-# At the production 5.1/8 leaf entry rate the reduce+cond machinery
-# costs LESS than the 8/8-leaf sweeps it avoids; keep the cond.
-_SWEEP_NOCOND = bool(os.environ.get("RAYTPU_SWEEP_NOCOND"))
-# flat traversal winner tracking (default on; RAYTPU_TIDX=0 reverts):
-# the leaf sweep carries (t, idx)-only predicated updates — 2 selects
-# per sphere instead of 10, a 5x shorter serial select chain — with a
-# per-row one-hot MXU attribute extraction afterwards.  Config-4
-# measured: wavefront 22.2 -> 24.0, megakernel 15.9 -> 20.2 Mrays/s.
-_TIDX = os.environ.get("RAYTPU_TIDX", "1") != "0"
-# K independent (t, idx) accumulator pairs in the flat sweep, merged
-# lexicographically ((t, idx)-min) at the end: consecutive sphere tests
-# go to different pairs, cutting the serial select-chain dependency K x.
-# The winner is BIT-identical (selection reordering, not float math —
-# the tie rule stays lowest-index).  K = 1 is the plain chain.
-_SWEEP_K = int(os.environ.get("RAYTPU_SWEEP_K", "1"))
-# persistent sample refill engages at this many spheres (the two
-# sample-loop forms are BIT-identical).  Round 2 set 48: refill's
-# respawn costs ~70 vops/iteration, which lost on cheap-sweep scenes
-# (config 2: sequential 243 vs refill 216 Mrays/s).  Round 3's
-# multi-tile grouping flipped it — refill+grouping wins even at 4
-# spheres (config 2 fwd 251 -> 265-267 Mrays/s, fwd+bwd 131 -> 151,
-# either RNG mode) — so refill is now the default everywhere.
-# RAYTPU_REFILL_MIN=1e9 restores the sequential sample loop.
-_REFILL_MIN = int(float(os.environ.get("RAYTPU_REFILL_MIN", "0")))
-# multi-tile persistent refill: each kernel instance owns up to this
-# many stacked row-tiles and refill continues ACROSS them, so the while
-# -loop's path-length tail (tile max-lane total work vs mean; measured
-# ~21% of the config-4 frame via the spp=20 vs spp=100 rays/s gap,
-# scripts/probe_tail.py) is paid once per group instead of per tile.
-# The actual factor is the largest divisor of the frame's row-tile
-# count <= this cap.  RAYTPU_MULTI_TILE=1 disables.
-# Round 3: grid steps are SEQUENTIAL on a TensorCore, so bigger groups
-# cost no parallelism — only the (cond-gated) flush unroll.  Measured
-# (cap 8 -> 25/50): config-4 fwd 147 -> 130.7 ms, fwd+bwd 288 -> 256
-# ms (25.0 Mrays/s), REFERENCE_V2 seq 700 -> 633, config-5 15.1 ->
-# 14.0 s (74 Mrays/s).  Returns flatten past ~25; 64 admits large
-# divisors on tall frames.
-_MULTI_TILE = int(os.environ.get("RAYTPU_MULTI_TILE", "64"))
-# RAYTPU_STRIDE=1 (+ block_w=128): strided pixel interleave — tail
-# -decorrelation experiment for the refill loop.  MEASURED NEGATIVE on
-# config 4 (15 vs 33 Mrays/s): scattering a tile's lanes across the
-# frame kills primary-ray frustum coherence, which is worth far more
-# than the path-length-tail reduction.  Kept as a documented probe.
-_STRIDED = bool(os.environ.get("RAYTPU_STRIDE"))
-# dense-MXU hit stage: "auto" engages it on compiled kernels when the
-# scene has at least RAYTPU_DENSE_MIN spheres; "1" forces it on
-# (including interpret mode), "0" off.  See make_bounce_body.
-_DENSE_MODE = os.environ.get("RAYTPU_DENSE", "auto")
-_DENSE_MIN = int(os.environ.get("RAYTPU_DENSE_MIN", "96"))
-# (2*Npad,16) matmul + ~14 (Npad,128) f32 intermediates must fit VMEM
-_DENSE_MAX = int(os.environ.get("RAYTPU_DENSE_MAX", "4096"))
-_INF = np.float32(3.0e38)
+# ray lanes per program: one warp, one lane per thread.  A block runs
+# until its slowest lane has spent its spp budget, so narrow blocks
+# waste less on divergent path lengths.  On an H100 80GB HBM3 (700 W),
+# 32 lanes against 64: config 4 @ 20 spp 17.5 vs 19.5 ms, REFERENCE_V2
+# 67.6 vs 75.1 ms, config 2 0.49 vs 0.43 ms
+BLOCK = 32
+_MIN_BLOCK = 16
+_MAX_WARPS = 4
+# floats per sphere in the scene pack: cx cy cz r mat ar ag ab param
+_STRIDE = 16
+_N_CAM = 32
+_INF = np.float32(np.inf)
 _SAFE_EPS = np.float32(1e-20)
+
+
+def block_lanes(n_pixels: int, block: int | None = None) -> int:
+    """Lanes per program for a slab of ``n_pixels``: ``block`` (default
+    :data:`BLOCK`), shrunk to the slab's size rounded up to a power of
+    two, never below 16."""
+    b = BLOCK if block is None else int(block)
+    if b < 1 or b & (b - 1):
+        raise ValueError(f"block must be a power of two, got {b}")
+    fit = 1 << max(0, int(n_pixels) - 1).bit_length()
+    return max(_MIN_BLOCK, min(b, fit))
+
+
+def num_warps(block: int) -> int:
+    return max(1, min(_MAX_WARPS, block // 32))
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -180,527 +121,55 @@ def _to_gamma(x, gamma):
     return jnp.where(x > 0, jnp.exp(jnp.log(safe) / gamma), 0.0)
 
 
-def _split_bf16x3(mat):
-    """f32 (rows, cols) -> bf16-EXACT splits stacked (3*rows, cols):
-    mat == hi + mid + lo exactly, each term carrying <= 8 significant
-    bits so it survives the TPU matmul's default bf16 input cast
-    losslessly — ONE single-pass matmul per split is then exact, where
-    the default cast on the raw values silently quantizes them (caught
-    as a 1.8 rel-err fuzz gradient on hardware) and Precision.HIGHEST
-    costs 6 passes.  The split MUST be bit-masking, not
-    f32->bf16->f32 casts: under --xla_allow_excess_precision the
-    algebraic simplifier elides the down-up cast pair, collapsing the
-    splits back into (mat, 0, 0) and resurrecting the bf16 bug."""
-    def trunc16(x):
-        u = jax.lax.bitcast_convert_type(x, jnp.uint32)
-        return jax.lax.bitcast_convert_type(
-            u & np.uint32(0xFFFF0000), jnp.float32)
+def _make_bounce(sc_ref, n_spheres: int, t_min, scatter_mode: str):
+    """One bounce of golden.trace's masked step over a block of lanes:
+    ``bounce(state) -> state`` with state
+    ``(ox, oy, oz, dx, dy, dz, cr, cg, cb, rr, rg, rb, alive_f, sd)``."""
 
-    hi = trunc16(mat)          # top 16 word bits: 8 significant bits
-    rem = mat - hi             # exact: <= 16 significant bits
-    mid = trunc16(rem)
-    lo = rem - mid             # exact: <= 8 significant bits
-    return jnp.concatenate([hi, mid, lo], axis=0)
+    def attr(idx, k):
+        return sc_ref[idx * _STRIDE + k]
 
-
-def _onehot_attrs(fat, at_pad, idxf):
-    """Winner-attribute extraction: ``idxf`` (rows, W) f32 winner
-    indices -> 9 (rows, W) attribute planes, one MXU matmul per row
-    against ``fat`` (48, at_pad), the _split_bf16x3 of the (16, at_pad)
-    attribute matrix.  EXACT: the one-hot column has a single 1.0 (or
-    none for idx = -1 misses -> all-zero attributes), each split rides
-    the bf16 input cast losslessly, and hi + mid + lo reconstructs the
-    f32 value with two exact adds.
-
-    MEASURED DEAD END (round 3): batching the rows along the lane axis
-    (one K = rows*W = 1024 matmul via (8,128)->(1,1024) reshapes,
-    bit-identical outputs) LOSES: config-4 fwd 145.0 -> 153.1 ms — the
-    lane-flatten relayouts + the (at_pad, 1024) one-hot build cost more
-    than the deeper-contraction MXU shape saves."""
-    w = idxf.shape[1]
-    iota = jax.lax.broadcasted_iota(jnp.int32, (at_pad, w), 0)
-    attr_rows = []
-    for r in range(idxf.shape[0]):
-        idxi = idxf[r:r + 1].astype(jnp.int32)
-        onehot = jnp.where(iota == idxi, 1.0, 0.0)
-        out = jnp.dot(fat, onehot, preferred_element_type=jnp.float32)
-        attr_rows.append(out[0:16] + out[16:32] + out[32:48])
-    return tuple(
-        jnp.concatenate([ar[k:k + 1] for ar in attr_rows], axis=0)
-        for k in range(9))
-
-
-def _seed_outlier_tests(body, state, outliers):
-    """Unroll the split-out outliers' unconditional sphere tests into
-    ``state`` before a walk (see bvh.build_bvh(split_outliers=...)).
-    ``body(j, state)`` is the sweep's per-sphere test — SHARED by the
-    (t, idx) sweep, both hs-state walks, and the VJP kernel's
-    closest_hit (CLAUDE.md lockstep rule)."""
-    if outliers is not None:
-        base, cnt = outliers
-        for kk in range(cnt):
-            state = body(jnp.int32(base + kk), state)
-    return state
-
-
-def _flat_sweep_ti(sc_ref, nd_ref, dyn_nodes, nbase, static_leaf, t_min,
-                   rays, inv_d, a, inv_a, alive, outliers=None,
-                   count: bool = False, unroll_n: int | None = None):
-    """Flat leaf-list closest-hit sweep -> (t_best, winner-index f32,
-    -1 = miss): iterate the octant-ordered leaf rows front-to-back
-    (``nd_ref`` = transposed ``bvh.flat``), entering a leaf's
-    statically-unrolled ``static_leaf`` sphere tests iff ANY live lane
-    hits its bbox within the current t_best.  The per-sphere loop
-    -carried state is just (t_best, index) — 2 predicated updates.
-    SHARED op-for-op by the megakernel bounce body and the VJP
-    kernel's closest_hit (CLAUDE.md lockstep rule).
-
-    ``outliers = (base, count)`` (static): spheres split OUT of the tree
-    by ``bvh.build_bvh(split_outliers=...)``, living at perm rows
-    [base, base+count).  Tested unconditionally BEFORE the walk — a
-    giant ground sphere is hit by most rays, so seeding ``t_best`` with
-    it lets far leaves die on the ``tfar <= t_best`` clamp.
-
-    With ``_SWEEP_K > 1`` the carry holds K independent (t, idx) pairs
-    (consecutive tests round-robin across them, cutting the serial
-    select-chain dependency K x) merged (t, idx)-lexicographically at
-    the end.  The per-test float math is identical; only the selection
-    order changes, so the winner is the same up to measure-zero
-    equal-t ties between distinct spheres (the same class where the
-    sweep's visit-order tie rule already differs from golden's
-    lowest-index argmin — see golden.hit_world)."""
-    ox, oy, oz, dx, dy, dz = rays
-    inv_dx, inv_dy, inv_dz = inv_d
-    zero = jnp.zeros_like(ox)
-    neg_inv_a = -inv_a  # hoisted: root1's negation folds into the mul
-    kp = max(1, min(_SWEEP_K, static_leaf or 1))
-
-    def sphere_body_ti(j, ti):
-        tb, idxf = ti
-        s_cx = sc_ref[0, j]
-        s_cy = sc_ref[1, j]
-        s_cz = sc_ref[2, j]
-        s_rad = sc_ref[3, j]
-        ocx = ox - s_cx
-        ocy = oy - s_cy
-        ocz = oz - s_cz
-        half_b = ocx * dx + ocy * dy + ocz * dz
-        c = (_dot3(ocx, ocy, ocz, ocx, ocy, ocz)
-             - s_rad * s_rad)
-        disc = half_b * half_b - a * c
-        # disc < 0 -> sqrt gives NaN; every NaN compare below is false
-        # so `win` stays false — BIT-identical to the has_root
-        # compare+select form it replaces, 3 vector ops cheaper.
-        # root1 = (-half_b - sqrtd)*inv_a rewritten with the hoisted
-        # -inv_a (negation and multiply sign-flips are exact in IEEE,
-        # so values are unchanged), one negate cheaper.
-        sqrtd = jnp.sqrt(disc)
-        root1 = (half_b + sqrtd) * neg_inv_a
-        root2 = (sqrtd - half_b) * inv_a
-        near_ok = root1 >= t_min
-        root = jnp.where(near_ok, root1, root2)
-        win = (root >= t_min) & (root < tb)
-        tb = jnp.where(win, root, tb)
-        idxf = jnp.where(win, j.astype(jnp.float32), idxf)
-        return (tb, idxf)
-
-    def leaf_iter_ti(k, ti):
-        tb = ti[0]
-        for p in range(1, kp):
-            tb = jnp.minimum(tb, ti[2 * p])
-        node = nbase + k
-        t1 = (nd_ref[0, node] - ox) * inv_dx
-        t2 = (nd_ref[3, node] - ox) * inv_dx
-        t3 = (nd_ref[1, node] - oy) * inv_dy
-        t4 = (nd_ref[4, node] - oy) * inv_dy
-        t5 = (nd_ref[2, node] - oz) * inv_dz
-        t6 = (nd_ref[5, node] - oz) * inv_dz
-        tnear = jnp.maximum(
-            jnp.maximum(jnp.minimum(t1, t2),
-                        jnp.minimum(t3, t4)),
-            jnp.maximum(jnp.minimum(t5, t6), t_min))
-        tfar = jnp.minimum(
-            jnp.minimum(jnp.maximum(t1, t2),
-                        jnp.maximum(t3, t4)),
-            jnp.minimum(jnp.maximum(t5, t6), tb))
-        boxhit = ~(tnear > tfar) & alive
-        anyhit = jnp.max(jnp.where(boxhit, 1.0, 0.0)) > 0
-        start = nd_ref[6, node].astype(jnp.int32)
-
-        def do_leaf(ti):
-            pairs = list(ti[:2 * kp])
-            for kk in range(static_leaf):
-                p = kk % kp
-                pairs[2 * p], pairs[2 * p + 1] = sphere_body_ti(
-                    start + kk, (pairs[2 * p], pairs[2 * p + 1]))
-            # entered-leaf census (roofline accounting, scripts/
-            # probe_roofline.py) — a scalar add, dead code when off
-            return ((*pairs, ti[2 * kp] + 1.0) if count
-                    else tuple(pairs))
-
-        if _SWEEP_NOCOND:
-            # probe mode: unconditional leaf entry — bit-identical
-            # results (winner updates self-predicate; the bbox/anyhit
-            # machinery above becomes dead code and is DCE'd)
-            return do_leaf(ti)
-        return jax.lax.cond(anyhit, do_leaf, lambda t: t, ti)
-
-    ti0 = _seed_outlier_tests(sphere_body_ti,
-                              (zero + _INF, zero - 1.0), outliers)
-    for _ in range(1, kp):
-        ti0 = (*ti0, zero + _INF, zero - 1.0)
-    if count:
-        ti0 = (*ti0, jnp.float32(0.0))
-    if unroll_n:
-        # static leaf loop: no loop control and no scalar trip-count
-        # dependency; identical visit order -> bit-identical winners
-        out = ti0
-        for _k in range(unroll_n):
-            out = leaf_iter_ti(jnp.int32(_k), out)
-    else:
-        out = jax.lax.fori_loop(0, dyn_nodes, leaf_iter_ti, ti0)
-    tb, idxf = out[0], out[1]
-    for p in range(1, kp):
-        tb2, id2 = out[2 * p], out[2 * p + 1]
-        take = (tb2 < tb) | ((tb2 == tb) & (id2 < idxf))
-        tb = jnp.where(take, tb2, tb)
-        idxf = jnp.where(take, id2, idxf)
-    if count:
-        return tb, idxf, out[2 * kp]
-    return tb, idxf
-
-
-def make_bounce_body(sc_ref, nd_ref, dyn_nsph, dyn_nodes, t_min,
-                     scatter_mode: str = "v2",
-                     static_leaf: int | None = None,
-                     flat_leaves: bool = False,
-                     flat_unroll_n: int | None = None,
-                     dense=None, flat_at=None, outliers=None,
-                     count_ref=None, fixed_nbase=None):
-    """ONE bounce of the path-trace state machine over an (8, 128) tile.
-
-    Returns ``body(state) -> state`` with state
-    ``(d, ox, oy, oz, dx, dy, dz, cr, cg, cb, rr, rg, rb, alive_f, sd)``
-    — exactly golden.trace's masked scan step (hlsl:255-287).  The single
-    source of truth for the per-bounce kernel math: both the megakernel's
-    in-register spp x depth loop and the wavefront kernel's segment loop
-    call this.  ``nd_ref=None`` selects the brute-force sweep; otherwise
-    the tile-coherent skip-pointer BVH walk (raytpu/bvh.py), or — with
-    ``flat_leaves`` — the flat leaf-list iteration: ``nd_ref`` then
-    holds the transposed ``bvh.flat`` (leaf rows only, 8 octant-ordered
-    copies) and ``dyn_nodes`` is the LEAF count per copy.  The flat walk
-    visits the same leaves with the same front-to-back ``tfar <= t_best``
-    culling, but pays no interior-node visits and carries no
-    skip-pointer scalar dependency between iterations (the next leaf
-    index is ``k + 1``, known before the current leaf resolves).
-    """
-
-    def body(st):
-        (d, ox, oy, oz, dx, dy, dz, cr, cg, cb, rr, rg, rb,
-         alive_f, sd) = st
-        shape = ox.shape
-        zero = jnp.zeros(shape, jnp.float32)
-        one = zero + 1.0
+    def bounce(st):
+        (ox, oy, oz, dx, dy, dz, cr, cg, cb, rr, rg, rb, alive_f, sd) = st
         alive = alive_f > 0
-
-        # -- closest hit over all spheres (hlsl:188-205), tracking
-        # the winner's attributes via predicated updates.  (A
-        # lean (t, idx)-only sweep + distinct-winner gather was
-        # measured SLOWER here: unsorted tiles have O(100)
-        # distinct winners and the serial extract loop dominates.)
         a = _dot3(dx, dy, dz, dx, dy, dz)
-        inv_a = 1.0 / a  # hoisted: roots multiply in the hot loop
+        inv_a = 1.0 / a
         neg_inv_a = -inv_a
 
-        def sphere_body(j, hs):
-            (tb, h_cx, h_cy, h_cz, h_rad,
-             h_mt, h_ar, h_ag, h_ab, h_mp) = hs
-            s_cx = sc_ref[0, j]
-            s_cy = sc_ref[1, j]
-            s_cz = sc_ref[2, j]
-            s_rad = sc_ref[3, j]
-            s_mt = sc_ref[4, j]
-            s_ar = sc_ref[5, j]
-            s_ag = sc_ref[6, j]
-            s_ab = sc_ref[7, j]
-            s_mp = sc_ref[8, j]
-
+        # closest hit (hlsl:188-205, golden.hit_world).  disc < 0 gives
+        # a NaN root whose compares are all false, so ``win`` stays
+        # false: the same winner as golden's has_root select.  Strict <
+        # keeps the lowest index on ties, as golden's argmin does.
+        def sphere(j, carry):
+            tb, wi = carry
+            s_cx = attr(j, 0)
+            s_cy = attr(j, 1)
+            s_cz = attr(j, 2)
+            s_rad = attr(j, 3)
             ocx = ox - s_cx
             ocy = oy - s_cy
             ocz = oz - s_cz
             half_b = ocx * dx + ocy * dy + ocz * dz
-            c = (_dot3(ocx, ocy, ocz, ocx, ocy, ocz)
-                 - s_rad * s_rad)
+            c = _dot3(ocx, ocy, ocz, ocx, ocy, ocz) - s_rad * s_rad
             disc = half_b * half_b - a * c
-            # NaN-propagation form of the root test (see
-            # _flat_sweep_ti.sphere_body_ti): bit-identical, 4 ops
-            # cheaper than the has_root compare+select
             sqrtd = jnp.sqrt(disc)
             root1 = (half_b + sqrtd) * neg_inv_a
             root2 = (sqrtd - half_b) * inv_a
-            near_ok = root1 >= t_min
-            root = jnp.where(near_ok, root1, root2)
+            root = jnp.where(root1 >= t_min, root1, root2)
             win = (root >= t_min) & (root < tb)
-            tb = jnp.where(win, root, tb)
-            h_cx = jnp.where(win, s_cx, h_cx)
-            h_cy = jnp.where(win, s_cy, h_cy)
-            h_cz = jnp.where(win, s_cz, h_cz)
-            h_rad = jnp.where(win, s_rad, h_rad)
-            h_mt = jnp.where(win, s_mt, h_mt)
-            h_ar = jnp.where(win, s_ar, h_ar)
-            h_ag = jnp.where(win, s_ag, h_ag)
-            h_ab = jnp.where(win, s_ab, h_ab)
-            h_mp = jnp.where(win, s_mp, h_mp)
-            return (tb, h_cx, h_cy, h_cz, h_rad,
-                    h_mt, h_ar, h_ag, h_ab, h_mp)
+            return jnp.where(win, root, tb), jnp.where(win, j, wi)
 
-        hs0 = (zero + _INF, zero, zero, zero, one,
-               zero, zero, zero, zero, zero)
-        if "nohit" in _ABLATE:
-            hs = ((zero + 0.5) + jnp.where(dx > 0, 0.0, _INF),
-                  *hs0[1:])
-        elif dense is not None:
-            # -- dense closest hit: instead of looping spheres with
-            # per-sphere predicated winner updates (~34 VPU ops each on
-            # scalar-broadcast operands), compute ALL candidates as
-            # (n_pad, W) planes per tile row — straight-line vector code
-            # with no traversal, no loop control and no per-sphere
-            # winner selects.  A sublane min/argmin picks the winner
-            # (first index on ties, like the loop's strict <) and ONE
-            # MXU matmul extracts its 9 attributes via a one-hot column
-            # (EXACT: a single 1.0 per column).  The quadratic is
-            # op-for-op golden.hit_world on the same fl(o - c) values:
-            # expanded forms (o.d - c.d / o.o - 2c.o + |c|^2) are NOT
-            # usable here — their absolute rounding error scales with
-            # |o||c| and turns grazing secondary rays into false self
-            # -hits (bounce origins sit ON a sphere) and perturbs
-            # r=1000-ground hit t's at 1e-3 relative, decohering paths.
-            cl_ref, at_ref, n_pad = dense
-            w = ox.shape[1]
-            c_x = cl_ref[:, 0:1]                    # (n_pad, 1)
-            c_y = cl_ref[:, 1:2]
-            c_z = cl_ref[:, 2:3]
-            r2 = cl_ref[:, 3:4]                     # r^2 (pads: -3e38)
-            at = at_ref[:, :]                       # (48, n_pad) splits
-            iota = jax.lax.broadcasted_iota(jnp.int32, (n_pad, w), 0)
-            neg_inv_a = -inv_a
-            tb_rows, attr_rows = [], []
-            for r in range(ox.shape[0]):
-                sl = slice(r, r + 1)
-                ocx = ox[sl] - c_x                  # (n_pad, W)
-                ocy = oy[sl] - c_y
-                ocz = oz[sl] - c_z
-                half_b = ocx * dx[sl] + ocy * dy[sl] + ocz * dz[sl]
-                ctm = (ocx * ocx + ocy * ocy + ocz * ocz) - r2
-                a_r = a[sl]
-                disc = half_b * half_b - a_r * ctm
-                # padded rows carry r^2 = -3e38 -> disc < 0 -> sqrt
-                # NaN -> compares false -> t_all = INF (NaN form of
-                # the root test, see _flat_sweep_ti: bit-identical)
-                sqrtd = jnp.sqrt(disc)
-                inv_a_r = inv_a[sl]
-                root1 = (half_b + sqrtd) * neg_inv_a[sl]
-                root2 = (sqrtd - half_b) * inv_a_r
-                near_ok = root1 >= t_min
-                root = jnp.where(near_ok, root1, root2)
-                t_all = jnp.where(root >= t_min, root, _INF)
-                tb_r = jnp.min(t_all, axis=0, keepdims=True)
-                idx_r = jnp.argmin(t_all, axis=0)
-                onehot = jnp.where(
-                    (iota == idx_r[None, :]) & (tb_r < _INF), 1.0, 0.0)
-                # exact bf16x3-split extraction (see _onehot_attrs)
-                out = jnp.dot(at, onehot,
-                              preferred_element_type=jnp.float32)
-                attrs = out[0:16] + out[16:32] + out[32:48]
-                tb_rows.append(tb_r)
-                attr_rows.append(attrs)
-
-            tb = jnp.concatenate(tb_rows, axis=0)
-            (h_cx, h_cy, h_cz, h_rad, h_mt,
-             h_ar, h_ag, h_ab, h_mp) = (
-                jnp.concatenate([ar[k:k + 1] for ar in attr_rows], axis=0)
-                for k in range(9))
-            # misses extract all-zero attributes; restore hs0's rad = 1
-            # guard (the normal's 1/rad below also re-guards rad == 0)
-            h_rad = jnp.where(tb < _INF, h_rad, 1.0)
-            hs = (tb, h_cx, h_cy, h_cz, h_rad,
-                  h_mt, h_ar, h_ag, h_ab, h_mp)
-        elif nd_ref is None:
-            hs = jax.lax.fori_loop(0, dyn_nsph, sphere_body, hs0)
-        else:
-            # tile-coherent skip-pointer traversal (raytpu/bvh.py):
-            # the whole tile walks the preorder node list; a node's
-            # subtree is entered iff ANY live lane hits its bbox.
-            inv_dx = 1.0 / dx
-            inv_dy = 1.0 / dy
-            inv_dz = 1.0 / dz
-
-            if static_leaf and fixed_nbase is not None:
-                # fixed per-instance octant (see _FIXED_OCTANT): the
-                # prologue's scalar primary-direction octant — no
-                # per-step cross-lane reduces
-                nbase = fixed_nbase
-            elif static_leaf:
-                # padded BVHs carry 8 octant-ordered node copies: pick
-                # the copy matching the tile's majority live-lane
-                # direction octant, so traversal runs front-to-back and
-                # far subtrees die on the tfar <= t_best clamp (any
-                # octant is CORRECT — only culling efficiency changes)
-                live = jnp.where(alive, 1.0, 0.0)
-                half = 0.5 * jnp.sum(live)
-                octi = (
-                    jnp.where(jnp.sum(jnp.where(alive & (dx < 0),
-                                                1.0, 0.0)) > half, 4, 0)
-                    + jnp.where(jnp.sum(jnp.where(alive & (dy < 0),
-                                                  1.0, 0.0)) > half, 2, 0)
-                    + jnp.where(jnp.sum(jnp.where(alive & (dz < 0),
-                                                  1.0, 0.0)) > half, 1, 0))
-                nbase = octi.astype(jnp.int32) * dyn_nodes
-            else:
-                nbase = jnp.int32(0)
-
-            if flat_leaves and flat_at is not None:
-                # (t, idx)-only flat sweep: same leaves, same math, but
-                # the per-sphere loop-carried state is just (t_best,
-                # winner index) — 2 predicated updates instead of 10,
-                # so the serial select chain between sphere tests is
-                # 5x shorter.  The winner's 9 attributes are extracted
-                # afterwards, once per tile row, by an EXACT one-hot
-                # MXU matmul against the permuted-scene attribute
-                # matrix (NaN leaf dummies zeroed there; a dummy can
-                # never win the sweep, and misses keep idx = -1 which
-                # one-hots to all-zero columns).
-                fat_ref, at_pad = flat_at
-                if count_ref is None:
-                    tb, idxf = _flat_sweep_ti(
-                        sc_ref, nd_ref, dyn_nodes, nbase, static_leaf,
-                        t_min, (ox, oy, oz, dx, dy, dz),
-                        (inv_dx, inv_dy, inv_dz), a, inv_a, alive,
-                        outliers=outliers, unroll_n=flat_unroll_n)
-                else:
-                    # roofline census: entered leaves + bounce steps
-                    # (scripts/probe_roofline.py)
-                    tb, idxf, cnt = _flat_sweep_ti(
-                        sc_ref, nd_ref, dyn_nodes, nbase, static_leaf,
-                        t_min, (ox, oy, oz, dx, dy, dz),
-                        (inv_dx, inv_dy, inv_dz), a, inv_a, alive,
-                        outliers=outliers, count=True)
-                    count_ref[0, 0] += cnt
-                    count_ref[0, 1] += 1.0
-                    n_live = jnp.sum(jnp.where(alive, 1.0, 0.0))
-                    count_ref[0, 2] += n_live
-
-                (h_cx, h_cy, h_cz, h_rad, h_mt,
-                 h_ar, h_ag, h_ab, h_mp) = _onehot_attrs(
-                    fat_ref[:, :], at_pad, idxf)
-                hs = (tb, h_cx, h_cy, h_cz, h_rad,
-                      h_mt, h_ar, h_ag, h_ab, h_mp)
-            elif flat_leaves:
-                assert static_leaf, "flat traversal needs padded leaves"
-                hs0 = _seed_outlier_tests(sphere_body, hs0, outliers)
-
-                def leaf_iter(k, hs):
-                    tb = hs[0]
-                    node = nbase + k
-                    t1 = (nd_ref[0, node] - ox) * inv_dx
-                    t2 = (nd_ref[3, node] - ox) * inv_dx
-                    t3 = (nd_ref[1, node] - oy) * inv_dy
-                    t4 = (nd_ref[4, node] - oy) * inv_dy
-                    t5 = (nd_ref[2, node] - oz) * inv_dz
-                    t6 = (nd_ref[5, node] - oz) * inv_dz
-                    tnear = jnp.maximum(
-                        jnp.maximum(jnp.minimum(t1, t2),
-                                    jnp.minimum(t3, t4)),
-                        jnp.maximum(jnp.minimum(t5, t6), t_min))
-                    tfar = jnp.minimum(
-                        jnp.minimum(jnp.maximum(t1, t2),
-                                    jnp.maximum(t3, t4)),
-                        jnp.minimum(jnp.maximum(t5, t6), tb))
-                    boxhit = ~(tnear > tfar) & alive
-                    anyhit = jnp.max(jnp.where(boxhit, 1.0, 0.0)) > 0
-                    start = nd_ref[6, node].astype(jnp.int32)
-
-                    def do_leaf(hs):
-                        for kk in range(static_leaf):
-                            hs = sphere_body(start + kk, hs)
-                        return hs
-
-                    return jax.lax.cond(anyhit, do_leaf, lambda h: h, hs)
-
-                if flat_unroll_n:
-                    # fully static leaf loop: L independent slab tests
-                    # unroll as straight-line vector code — no loop
-                    # control, no scalar dependency between iterations
-                    # beyond the tb clamp
-                    hs = hs0
-                    for k in range(flat_unroll_n):
-                        hs = leaf_iter(jnp.int32(k), hs)
-                else:
-                    hs = jax.lax.fori_loop(0, dyn_nodes, leaf_iter, hs0)
-            else:
-                hs0 = _seed_outlier_tests(sphere_body, hs0, outliers)
-
-                def t_cond(ts):
-                    return ts[0] < dyn_nodes
-
-                def t_body(ts):
-                    rel = ts[0]
-                    node = nbase + rel
-                    hs = ts[1:]
-                    tb = hs[0]
-                    t1 = (nd_ref[0, node] - ox) * inv_dx
-                    t2 = (nd_ref[3, node] - ox) * inv_dx
-                    t3 = (nd_ref[1, node] - oy) * inv_dy
-                    t4 = (nd_ref[4, node] - oy) * inv_dy
-                    t5 = (nd_ref[2, node] - oz) * inv_dz
-                    t6 = (nd_ref[5, node] - oz) * inv_dz
-                    tnear = jnp.maximum(
-                        jnp.maximum(jnp.minimum(t1, t2),
-                                    jnp.minimum(t3, t4)),
-                        jnp.maximum(jnp.minimum(t5, t6), t_min))
-                    tfar = jnp.minimum(
-                        jnp.minimum(jnp.maximum(t1, t2),
-                                    jnp.maximum(t3, t4)),
-                        jnp.minimum(jnp.maximum(t5, t6), tb))
-                    # NaN (origin on a padded face) -> treated as hit:
-                    # conservative, never misses true intersections
-                    boxhit = ~(tnear > tfar) & alive
-                    anyhit = jnp.max(jnp.where(boxhit, 1.0, 0.0)) > 0
-                    start = nd_ref[6, node].astype(jnp.int32)
-                    count = nd_ref[7, node].astype(jnp.int32)
-                    skip = nd_ref[8, node].astype(jnp.int32)
-                    if static_leaf:
-                        # padded leaves: every leaf holds EXACTLY
-                        # static_leaf entries, so the entered-leaf body is
-                        # straight-line unrolled vector code (no per-sphere
-                        # loop control — measured ~1.5x on the sweep);
-                        # lax.cond still skips un-entered leaves entirely
-                        def do_leaf(hs):
-                            for k in range(static_leaf):
-                                hs = sphere_body(start + k, hs)
-                            return hs
-
-                        hs = jax.lax.cond(anyhit & (count > 0), do_leaf,
-                                          lambda hs: hs, hs)
-                    else:
-                        count_eff = jnp.where(anyhit, count, 0)
-                        hs = jax.lax.fori_loop(
-                            start, start + count_eff, sphere_body, hs)
-                    # skip pointers are relative within one octant copy
-                    node_next = jnp.where(anyhit & (count == 0),
-                                          rel + 1, skip)
-                    return (node_next, *hs)
-
-                out = jax.lax.while_loop(
-                    t_cond, t_body, (jnp.int32(0), *hs0))
-                hs = out[1:]
-        (tb, h_cx, h_cy, h_cz, h_rad,
-         h_mt, h_ar, h_ag, h_ab, h_mp) = hs
-
+        tb, wi = jax.lax.fori_loop(
+            0, n_spheres, sphere,
+            (jnp.full(ox.shape, _INF), jnp.full(ox.shape, -1, jnp.int32)))
         hit_any = tb < _INF
         t = jnp.where(hit_any, tb, 1.0)
+        # misses read sphere 0, as golden's argmin over an all-inf row;
+        # nothing of a miss lane's hit record reaches its state
+        wi = jnp.maximum(wi, 0)
+        h_cx, h_cy, h_cz, h_rad = (attr(wi, k) for k in range(4))
+        h_mt, h_ar, h_ag, h_ab, h_mp = (attr(wi, k) for k in range(4, 9))
 
-        # hit point + outward normal (hlsl:180-183, golden.hit_world)
         hpx = ox + t * dx
         hpy = oy + t * dy
         hpz = oz + t * dz
@@ -714,45 +183,10 @@ def make_bounce_body(sc_ref, nd_ref, dyn_nsph, dyn_nodes, t_min,
         ny = ny * sgn
         nz = nz * sgn
 
-        # -- scatter (hlsl:207-252, golden.scatter)
-        if "norng" in _ABLATE:
-            sx = zero + 0.1
-            sy = zero + 0.2
-            sz = zero + 0.3
-            h1 = zero + 0.5
-            sd_new = sd
-        else:
-            (sx, sy, sz), sd_new = rng.random_in_unit_sphere(sd)
-            h1, _ = rng.hash1(sd)
-
-        if "noscatter" in _ABLATE:
-            ddx, ddy, ddz = _normalize3(nx + sx, ny + sy, nz + sz)
-            scat = alive & hit_any
-            absorbed = alive & ~hit_any & (zero > 1.0)
-            missed = alive & ~hit_any
-            skr, skg, skb = _sky(dx, dy, dz)
-            rr = jnp.where(missed, rr + cr * skr, rr)
-            rg = jnp.where(missed, rg + cg * skg, rg)
-            rb = jnp.where(missed, rb + cb * skb, rb)
-            cr = jnp.where(scat, cr * h_ar, cr)
-            cg = jnp.where(scat, cg * h_ag, cg)
-            cb = jnp.where(scat, cb * h_ab, cb)
-            ox = jnp.where(scat, hpx, ox)
-            oy = jnp.where(scat, hpy, oy)
-            oz = jnp.where(scat, hpz, oz)
-            dx = jnp.where(scat, ddx, dx)
-            dy = jnp.where(scat, ddy, dy)
-            dz = jnp.where(scat, ddz, dz)
-            sd = jnp.where(scat, sd_new, sd)
-            alive = alive & ~(missed | absorbed)
-            alive_f = jnp.where(alive, 1.0, 0.0)
-            return (d + 1, ox, oy, oz, dx, dy, dz, cr, cg, cb,
-                    rr, rg, rb, alive_f, sd)
-
+        # scatter (hlsl:207-252, golden.scatter)
+        (sx, sy, sz), sd_new = rng.random_in_unit_sphere(sd)
+        h1, _ = rng.hash1(sd)
         if scatter_mode == "v1":
-            # v1 materials (Shader_RT.fx:217-243): hemisphere diffuse
-            # with near-zero guard, saturated fuzz, both unnormalized —
-            # op-for-op golden.scatter(mode="v1")
             flip = _dot3(sx, sy, sz, nx, ny, nz) > 0
             hxx = jnp.where(flip, sx, -sx)
             hyy = jnp.where(flip, sy, -sy)
@@ -774,7 +208,6 @@ def make_bounce_body(sc_ref, nd_ref, dyn_nsph, dyn_nodes, t_min,
             mdz = rz + fz * hzz
         else:
             ddx, ddy, ddz = _normalize3(nx + sx, ny + sy, nz + sz)
-
             rx, ry, rz = _reflect(dx, dy, dz, nx, ny, nz)
             mdx, mdy, mdz = _normalize3(
                 rx + h_mp * sx, ry + h_mp * sy, rz + h_mp * sz)
@@ -796,11 +229,9 @@ def make_bounce_body(sc_ref, nd_ref, dyn_nsph, dyn_nodes, t_min,
         is_d = h_mt == 0.0
         is_m = h_mt == 1.0
         ok = is_d | is_m | is_glass
-
         atr = jnp.where(is_glass, 1.0, h_ar)
         atg = jnp.where(is_glass, 1.0, h_ag)
         atb = jnp.where(is_glass, 1.0, h_ab)
-
         odx = jnp.where(is_d, ddx, jnp.where(is_m, mdx, gdx))
         ody = jnp.where(is_d, ddy, jnp.where(is_m, mdy, gdy))
         odz = jnp.where(is_d, ddz, jnp.where(is_m, mdz, gdz))
@@ -808,16 +239,12 @@ def make_bounce_body(sc_ref, nd_ref, dyn_nsph, dyn_nodes, t_min,
         scat = alive & hit_any & ok
         absorbed = alive & hit_any & ~ok
         missed = alive & ~hit_any
-
-        # ADD (not overwrite): a sample's ray misses at most once with
-        # rr still at its incoming value, so this is value-identical for
-        # the megakernel's per-sample rr=0 start — and it lets the
-        # wavefront renderer carry multi-wave radiance sums in-slot.
+        # ADD, not overwrite: a sample misses at most once, starting
+        # from rr = 0, so this equals golden's overwrite
         skr, skg, skb = _sky(dx, dy, dz)
         rr = jnp.where(missed, rr + cr * skr, rr)
         rg = jnp.where(missed, rg + cg * skg, rg)
         rb = jnp.where(missed, rb + cb * skb, rb)
-
         cr = jnp.where(scat, cr * atr, cr)
         cg = jnp.where(scat, cg * atg, cg)
         cb = jnp.where(scat, cb * atb, cb)
@@ -830,36 +257,28 @@ def make_bounce_body(sc_ref, nd_ref, dyn_nsph, dyn_nodes, t_min,
         sd = jnp.where(scat, sd_new, sd)
         alive = alive & ~(missed | absorbed)
         alive_f = jnp.where(alive, 1.0, 0.0)
-        return (d + 1, ox, oy, oz, dx, dy, dz, cr, cg, cb,
-                rr, rg, rb, alive_f, sd)
+        return (ox, oy, oz, dx, dy, dz, cr, cg, cb, rr, rg, rb, alive_f, sd)
 
-    return body
+    return bounce
 
 
-def make_gen_ray(cam_ref, fx, fy, inv_w, inv_h):
-    """Jitter + raygen factory -> ``gen_ray(sd) -> (o3, d3, sd')``
-    (golden: camera.get_ray; v1 defocus Shader_RT.fx:288).  ``cam_ref``
-    is the SMEM camera pack (_pack_camera layout); ``fx, fy`` are the
-    lanes' absolute pixel coords as f32.  Shared op-for-op by the
-    megakernel and the refill-wavefront segment kernel (CLAUDE.md
-    lockstep rule)."""
-    def cam3(i):
-        return cam_ref[i], cam_ref[i + 1], cam_ref[i + 2]
-
-    c_ox, c_oy, c_oz = cam3(0)        # origin
-    c_hx, c_hy, c_hz = cam3(3)        # horizontal
-    c_vx, c_vy, c_vz = cam3(6)        # vertical
-    c_lx, c_ly, c_lz = cam3(9)        # lower_left
-    c_ux, c_uy, c_uz = cam3(12)       # u basis
-    c_wx, c_wy, c_wz = cam3(15)       # v basis
+def _make_gen_ray(cam_ref, fx, fy, inv_w, inv_h):
+    """Jitter + raygen -> ``gen_ray(sd) -> (ox, oy, oz, dx, dy, dz, sd')``:
+    golden.accumulate_pixels' jitter and camera.get_ray, op for op."""
+    c_ox, c_oy, c_oz = cam_ref[0], cam_ref[1], cam_ref[2]
+    c_hx, c_hy, c_hz = cam_ref[3], cam_ref[4], cam_ref[5]
+    c_vx, c_vy, c_vz = cam_ref[6], cam_ref[7], cam_ref[8]
+    c_lx, c_ly, c_lz = cam_ref[9], cam_ref[10], cam_ref[11]
+    c_ux, c_uy, c_uz = cam_ref[12], cam_ref[13], cam_ref[14]
+    c_wx, c_wy, c_wz = cam_ref[15], cam_ref[16], cam_ref[17]
     lens_r = cam_ref[18]
     defocus = lens_r > 0
 
-    def gen_ray(sd, fy_cur=None):
+    def gen_ray(sd):
         (j1a, _), sd = rng.hash2(sd)
         (_, j2b), sd = rng.hash2(sd)
         u = (fx + j1a * 1.1) * inv_w
-        v = ((fy if fy_cur is None else fy_cur) + j2b * 1.1) * inv_h
+        v = (fy + j2b * 1.1) * inv_h
         (ldx, ldy), sd_lens = rng.random_in_unit_disk(sd)
         sd = jnp.where(defocus, sd_lens, sd)
         rdx_l = lens_r * ldx
@@ -878,87 +297,77 @@ def make_gen_ray(cam_ref, fx, fy, inv_w, inv_h):
     return gen_ray
 
 
-def make_refill_step(bounce, gen_ray, seed0, dyn_depth_f, dyn_spp_f,
-                     parallel, sample_base, sample_stride: int = 1,
-                     multi=None):
-    """Persistent-sample-refill step factory -> ``body(st) -> st`` over
-    the 19-element per-lane state
+@functools.lru_cache(maxsize=64)
+def _make_kernel(cfg: RenderConfig, n_spheres: int, n_pixels: int,
+                 block: int, spp: int, carry_state: bool):
+    """Kernel over one block of ``block`` lanes of a row slab of
+    ``n_pixels`` = rows x width pixels.  Operands: ints (8,) i32
+    [row0, s0], camera (32,) f32, scene (N*16,) f32; with
+    ``carry_state`` also the carried linear sums and seeds, and the
+    outputs are sums + seeds instead of gamma-corrected colors."""
+    width = cfg.width
+    parallel = cfg.rng_mode == "parallel"
+    t_min = np.float32(cfg.t_min)
+    inv_w = inv_extent(cfg.width)
+    inv_h = inv_extent(cfg.height)
+    inv_spp = np.float32(1.0 / spp)
+    depth_f = np.float32(cfg.depth)
+    spp_f = np.float32(spp)
+    gamma = cfg.gamma
 
-    ``(ox, oy, oz, dx, dy, dz, cr, cg, cb, rr, rg, rb, alive_f, sd,
-       s_pl, d_pl, ar, ag, ab)``
+    def kernel(ints_ref, cam_ref, sc_ref, *rest):
+        if carry_state:
+            (acr_ref, acg_ref, acb_ref, sin_ref,
+             r_ref, g_ref, b_ref, sout_ref) = rest
+        else:
+            r_ref, g_ref, b_ref = rest
+        row0 = ints_ref[0]
+        s0 = ints_ref[1].astype(jnp.uint32)
+        p = (pl.program_id(0) * block
+             + jax.lax.broadcasted_iota(jnp.int32, (block,), 0))
+        px = p % width
+        py = row0 + p // width
+        fx = px.astype(jnp.float32)
+        fy = py.astype(jnp.float32)
+        one = jnp.ones((block,), jnp.float32)
+        zero = jnp.zeros((block,), jnp.float32)
+        # padded lanes past the slab start dead: they never run a bounce
+        live0 = jnp.where(p < n_pixels, 1.0, 0.0)
 
-    — one bounce, then every lane whose sample just terminated
-    (miss/absorb/depth cap) folds its radiance into the (ar, ag, ab)
-    accumulators and respawns its pixel's NEXT sample in-register.
-    ``sample_base``/``sample_stride``: a respawning lane's parallel-RNG
-    stream is ``fold_in(seed0, s * stride + base)`` — the megakernel
-    passes (dyn_s0, 1); the refill wavefront passes (its per-lane
-    sample-slot index, spp_batch).  Shared op-for-op by the megakernel
-    and the refill-wavefront segment kernel (CLAUDE.md lockstep
-    rule).
+        seed0 = rng.pixel_seed(px.astype(jnp.uint32), py.astype(jnp.uint32))
+        if carry_state:
+            acc0 = (acr_ref[...], acg_ref[...], acb_ref[...])
+            if not parallel:
+                # sequential progressive: resume each pixel's chain
+                seed0 = sin_ref[...]
+        else:
+            acc0 = (zero, zero, zero)
 
-    ``multi = (n_tiles, hop, py0_i, px_u32, fy0, flush)`` selects the
-    MULTI-TILE persistent variant: the state grows
-    a 20th plane ``m_pl`` (the lane's current tile within its group,
-    f32) and a lane that exhausts tile m's spp budget flushes its
-    accumulators via ``flush(mask, m_pl, fr, fg, fb)`` (a predicated
-    RMW into the output block's rows [8m, 8m+8)) and respawns sample 0
-    of the SAME lane position ``hop`` PIXEL rows down (tile m+1, where
-    hop = the tiling's block_h) — so the while loop's path-length tail
-    (tile max-lane vs mean total work) is paid once per n_tiles tiles
-    instead of per tile.  Per-pixel seeds and accumulation order are
-    exactly the single-tile loop's (seeds re-derive from absolute
-    coords), so images stay BIT-identical."""
-    stride = jnp.uint32(sample_stride)
+        bounce = _make_bounce(sc_ref, n_spheres, t_min, cfg.scatter_mode)
+        gen_ray = _make_gen_ray(cam_ref, fx, fy, inv_w, inv_h)
 
-    if multi is not None:
-        n_tiles, hop, py0_i, px_u32, fy0, flush = multi
-        n_tiles_f = jnp.float32(n_tiles)
-
-        def body_mt(st):
+        def step(st):
             (ox, oy, oz, dx, dy, dz, cr, cg, cb, rr, rg, rb,
-             alive_f, sd, s_pl, d_pl, ar, ag, ab, m_pl) = st
+             alive_f, sd, s_pl, d_pl, ar, ag, ab) = st
             was = alive_f > 0
-            bst = bounce((jnp.int32(0), ox, oy, oz, dx, dy, dz,
-                          cr, cg, cb, rr, rg, rb, alive_f, sd))
-            (_, ox, oy, oz, dx, dy, dz, cr, cg, cb, rr, rg, rb,
-             alive_f, sd) = bst
+            (ox, oy, oz, dx, dy, dz, cr, cg, cb, rr, rg, rb,
+             alive_f, sd) = bounce((ox, oy, oz, dx, dy, dz, cr, cg, cb,
+                                    rr, rg, rb, alive_f, sd))
             d_pl = jnp.where(was, d_pl + 1.0, d_pl)
-            fin = was & ((alive_f <= 0) | (d_pl >= dyn_depth_f))
+            fin = was & ((alive_f <= 0) | (d_pl >= depth_f))
             s_next = s_pl + 1.0
-            tile_done = fin & (s_next >= dyn_spp_f)
-            m_next = jnp.where(tile_done, m_pl + 1.0, m_pl)
-            more = fin & ((s_next < dyn_spp_f) | (m_next < n_tiles_f))
-            fr = ar + rr
-            fg = ag + rg
-            fb = ab + rb
-            flush(tile_done, m_pl, fr, fg, fb)
-            ar = jnp.where(tile_done, 0.0, jnp.where(fin, fr, ar))
-            ag = jnp.where(tile_done, 0.0, jnp.where(fin, fg, ag))
-            ab = jnp.where(tile_done, 0.0, jnp.where(fin, fb, ab))
-            s_eff = jnp.where(tile_done, 0.0, s_next)
-            # respawn in the lane's CURRENT tile (m_next): re-derive the
-            # pixel seed from absolute coords (f32 -> i32 -> u32 hop —
-            # Mosaic has no f32->u32 cast; m is a small non-negative
-            # count so the values are identical)
-            m_i = m_next.astype(jnp.int32)
-            py_u = (py0_i + hop * m_i).astype(jnp.uint32)
-            seed0_cur = rng.pixel_seed(px_u32, py_u)
+            more = fin & (s_next < spp_f)
+            ar = jnp.where(fin, ar + rr, ar)
+            ag = jnp.where(fin, ag + rg, ag)
+            ab = jnp.where(fin, ab + rb, ab)
             if parallel:
+                # per-sample stream, re-folded from the pixel seed
                 sd_r = rng.fold_in(
-                    seed0_cur, s_eff.astype(jnp.int32)
-                    .astype(jnp.uint32) * stride + sample_base)
+                    seed0, s_next.astype(jnp.int32).astype(jnp.uint32) + s0)
             else:
-                # sequential chains are PER-PIXEL: a tile hop starts the
-                # new pixel's chain at its base seed; an in-tile respawn
-                # continues the lane's chain — exactly the single-tile
-                # sequential loop's semantics, so images stay
-                # bit-identical (round 3: grouping no longer requires
-                # parallel streams; the reference-parity sequential
-                # rows get the same tail amortization)
-                sd_r = jnp.where(tile_done, seed0_cur, sd)
-            fy_cur = fy0 + jnp.float32(hop) * m_next
-            nox, noy, noz, ndx, ndy, ndz, sd_n = gen_ray(sd_r, fy_cur)
+                # the sequential chain continues from the lane's seed
+                sd_r = sd
+            nox, noy, noz, ndx, ndy, ndz, sd_n = gen_ray(sd_r)
             ox = jnp.where(more, nox, ox)
             oy = jnp.where(more, noy, oy)
             oz = jnp.where(more, noz, oz)
@@ -972,875 +381,169 @@ def make_refill_step(bounce, gen_ray, seed0, dyn_depth_f, dyn_spp_f,
             rg = jnp.where(fin, 0.0, rg)
             rb = jnp.where(fin, 0.0, rb)
             sd = jnp.where(more, sd_n, sd)
-            s_pl = jnp.where(tile_done, 0.0,
-                             jnp.where(fin, s_next, s_pl))
+            s_pl = jnp.where(fin, s_next, s_pl)
             d_pl = jnp.where(more, 0.0, d_pl)
-            m_pl = m_next
-            alive_f = jnp.where(
-                fin, jnp.where(more, 1.0, 0.0), alive_f)
+            alive_f = jnp.where(fin, jnp.where(more, 1.0, 0.0), alive_f)
             return (ox, oy, oz, dx, dy, dz, cr, cg, cb, rr, rg, rb,
-                    alive_f, sd, s_pl, d_pl, ar, ag, ab, m_pl)
+                    alive_f, sd, s_pl, d_pl, ar, ag, ab)
 
-        return body_mt
-
-    def body(st):
-        (ox, oy, oz, dx, dy, dz, cr, cg, cb, rr, rg, rb,
-         alive_f, sd, s_pl, d_pl, ar, ag, ab) = st
-        was = alive_f > 0
-        bst = bounce((jnp.int32(0), ox, oy, oz, dx, dy, dz,
-                      cr, cg, cb, rr, rg, rb, alive_f, sd))
-        (_, ox, oy, oz, dx, dy, dz, cr, cg, cb, rr, rg, rb,
-         alive_f, sd) = bst
-        d_pl = jnp.where(was, d_pl + 1.0, d_pl)
-        fin = was & ((alive_f <= 0) | (d_pl >= dyn_depth_f))
-        s_next = s_pl + 1.0
-        more = fin & (s_next < dyn_spp_f)
-        ar = jnp.where(fin, ar + rr, ar)
-        ag = jnp.where(fin, ag + rg, ag)
-        ab = jnp.where(fin, ab + rb, ab)
-        if parallel:
-            # per-sample stream: re-fold from the pixel seed
-            sd_r = rng.fold_in(
-                seed0, s_next.astype(jnp.int32)
-                .astype(jnp.uint32) * stride + sample_base)
-        else:
-            # sequential chain continues from the lane's seed
-            sd_r = sd
-        nox, noy, noz, ndx, ndy, ndz, sd_n = gen_ray(sd_r)
-        ox = jnp.where(more, nox, ox)
-        oy = jnp.where(more, noy, oy)
-        oz = jnp.where(more, noz, oz)
-        dx = jnp.where(more, ndx, dx)
-        dy = jnp.where(more, ndy, dy)
-        dz = jnp.where(more, ndz, dz)
-        cr = jnp.where(more, 1.0, cr)
-        cg = jnp.where(more, 1.0, cg)
-        cb = jnp.where(more, 1.0, cb)
-        rr = jnp.where(fin, 0.0, rr)
-        rg = jnp.where(fin, 0.0, rg)
-        rb = jnp.where(fin, 0.0, rb)
-        sd = jnp.where(more, sd_n, sd)
-        s_pl = jnp.where(fin, s_next, s_pl)
-        d_pl = jnp.where(more, 0.0, d_pl)
-        alive_f = jnp.where(
-            fin, jnp.where(more, 1.0, 0.0), alive_f)
-        return (ox, oy, oz, dx, dy, dz, cr, cg, cb, rr, rg, rb,
-                alive_f, sd, s_pl, d_pl, ar, ag, ab)
-
-    return body
-
-
-def _bvh_outliers(perm, flat, leaf_size):
-    """(base, count) of the split-out outlier tail, or None — see
-    bvh.outlier_tail (the single source of truth for the layout)."""
-    from raytpu.bvh import outlier_tail
-    return outlier_tail(perm, flat, leaf_size)
-
-
-def _make_kernel(cfg: RenderConfig, n_spheres: int, n_nodes: int = 0,
-                 carry_state: bool = False, block_w: int = _TILE_W,
-                 static_leaf: int | None = None,
-                 flat_leaves: bool = False,
-                 dense_pad: int | None = None,
-                 flat_at_pad: int | None = None,
-                 strided: bool = False,
-                 outliers: tuple | None = None,
-                 multi_tile: int = 1,
-                 count_leaves: bool = False):
-    depth = cfg.depth
-    spp = cfg.spp
-    parallel = cfg.rng_mode == "parallel"
-    t_min = np.float32(cfg.t_min)
-    inv_w = np.float32(1.0 / (cfg.width - 1))
-    inv_h = np.float32(1.0 / (cfg.height - 1))
-    inv_spp = np.float32(1.0 / spp)
-    gamma = cfg.gamma
-    block_h = (_TILE_H * _TILE_W) // block_w
-    refill = (not _NO_EARLY_EXIT) and n_spheres >= _REFILL_MIN
-    if multi_tile > 1:
-        assert (refill and not carry_state
-                and not strided), (
-            "multi-tile needs the refill loop and no carried state")
-
-    def kernel(cam_ref, sc_ref, *rest):
-        mx_ref = at_ref = fat_ref = None
-        if dense_pad:
-            mx_ref, at_ref, *rest = rest
-        if flat_at_pad:
-            fat_ref, *rest = rest
-        nd_ref = None
-        if n_nodes:
-            nd_ref, *rest = rest
-        cnt_ref = cnt_acc = None
+        sd_init = rng.fold_in(seed0, s0) if parallel else seed0
+        iox, ioy, ioz, idx_, idy, idz, sd_i = gen_ray(sd_init)
+        st = (iox, ioy, ioz, idx_, idy, idz, one, one, one,
+              zero, zero, zero, live0, sd_i, zero, zero, *acc0)
+        st = jax.lax.while_loop(lambda s: jnp.max(s[12]) > 0, step, st)
+        acc_r, acc_g, acc_b = st[16], st[17], st[18]
         if carry_state:
-            (accr_in, accg_in, accb_in, seed_in,
-             r_ref, g_ref, b_ref, seed_out) = rest
-        elif count_leaves:
-            r_ref, g_ref, b_ref, cnt_ref, cnt_acc = rest
+            r_ref[...] = acc_r
+            g_ref[...] = acc_g
+            b_ref[...] = acc_b
+            # parallel streams re-fold per sample: the pixel seed is
+            # the carried state; sequential carries the chain
+            sout_ref[...] = seed0 if parallel else st[13]
         else:
-            r_ref, g_ref, b_ref = rest
-        ti = pl.program_id(0)
-        tj = pl.program_id(1)
-        if count_leaves:
-            @pl.when((ti == 0) & (tj == 0))
-            def _():
-                for i in range(8):
-                    cnt_acc[0, i] = 0.0
-        shape = (_TILE_H, _TILE_W)
-        # row0 (cam slot 23): absolute row of this kernel's first tile —
-        # nonzero when a device renders one slab of a sharded frame
-        row0 = cam_ref[23].astype(jnp.int32)
-        if strided:
-            # strided pixel interleave: lane (r, c) of tile (ti, tj)
-            # covers pixel (ti + r*gi, tj + c*gj) — a tile's 1024
-            # lanes form a sparse grid over the whole frame, so their
-            # per-lane path-length TOTALS decorrelate and the refill
-            # loop's tile-max work pulls toward the mean.  Outputs are
-            # unscrambled by a pure transpose; pixels are identical
-            # (RNG seeds are absolute-coordinate).  NOTE: measured a
-            # NET LOSS (see _STRIDED) — losing primary frustum
-            # coherence costs more than the tail saves.
-            gi = pl.num_programs(0)
-            gj = pl.num_programs(1)
-            py = (row0 + ti
-                  + gi * jax.lax.broadcasted_iota(jnp.int32, shape, 0))
-            px = (tj
-                  + gj * jax.lax.broadcasted_iota(jnp.int32, shape, 1))
-        elif block_w == _TILE_W:
-            # multi_tile > 1: this instance owns multi_tile stacked row
-            # -tiles; py covers the FIRST (lanes advance by 8-row hops
-            # as their per-tile spp budgets exhaust — see the multi
-            # branch of make_refill_step)
-            py = (row0 + ti * (_TILE_H * multi_tile)
-                  + jax.lax.broadcasted_iota(jnp.int32, shape, 0))
-            px = (tj * _TILE_W
-                  + jax.lax.broadcasted_iota(jnp.int32, shape, 1))
-        else:
-            # square-ish block tiling: this tile's 1024 lanes cover a
-            # (block_h x block_w) PIXEL BLOCK instead of an 8 x 128 image
-            # strip — the tile's view frustum shrinks ~(128/block_w)x
-            # horizontally, so the tile-coherent BVH walk culls far more
-            # (outputs are in block layout; the host unscrambles).
-            # multi_tile > 1: py covers the instance's FIRST block;
-            # lanes hop block_h pixel rows down per exhausted block.
-            m = (jax.lax.broadcasted_iota(jnp.int32, shape, 0) * _TILE_W
-                 + jax.lax.broadcasted_iota(jnp.int32, shape, 1))
-            py = row0 + ti * (block_h * multi_tile) + m // block_w
-            px = tj * block_w + m % block_w
-        if carry_state and not parallel:
-            # sequential progressive: resume each pixel's seed chain
-            seed = pltpu.bitcast(seed_in[:, :], jnp.uint32)
-        else:
-            seed = rng.pixel_seed(px.astype(jnp.uint32),
-                                  py.astype(jnp.uint32))
-        fx = px.astype(jnp.float32)
-        fy = py.astype(jnp.float32)
-
-        # runtime trip counts (SMEM scalars, cam pack slots 19-21): static
-        # Python bounds would let Mosaic fully unroll spp x depth x spheres
-        # and explode compile time
-        dyn_depth = (depth if "depth" in _STATIC_BOUNDS
-                     else cam_ref[19].astype(jnp.int32))
-        dyn_spp = (spp if "spp" in _STATIC_BOUNDS
-                   else cam_ref[20].astype(jnp.int32))
-        dyn_nsph = (n_spheres if "nsph" in _STATIC_BOUNDS
-                    else cam_ref[21].astype(jnp.int32))
-        # parallel sample offset; i32 hop — Mosaic has no f32->u32 cast
-        # (value-identical: s0 is a small non-negative count)
-        dyn_s0 = cam_ref[24].astype(jnp.int32).astype(jnp.uint32)
-
-        dyn_nodes = (0 if not n_nodes else
-                     (n_nodes if "nodes" in _STATIC_BOUNDS
-                      else cam_ref[22].astype(jnp.int32)))
-        unroll = (n_nodes if flat_leaves
-                  and n_nodes <= _FLAT_UNROLL_MAX else None)
-        dense = ((mx_ref, at_ref, dense_pad) if dense_pad else None)
-        flat_at = ((fat_ref, flat_at_pad) if flat_at_pad else None)
-        fixed_nbase = None
-        if _FIXED_OCTANT and n_nodes and static_leaf and not strided:
-            # instance-center PRIMARY direction from camera scalars
-            # only (see _FIXED_OCTANT) — zero cross-lane reduces
-            span_h = ((_TILE_H if block_w == _TILE_W else block_h)
-                      * multi_tile)
-            span_w = _TILE_W if block_w == _TILE_W else block_w
-            cy = (row0 + ti * span_h + span_h // 2).astype(jnp.float32)
-            cx = (tj * span_w + span_w // 2).astype(jnp.float32)
-            u_c = cx * inv_w
-            v_c = cy * inv_h
-            dxc = (cam_ref[9] + u_c * cam_ref[3] + v_c * cam_ref[6]
-                   - cam_ref[0])
-            dyc = (cam_ref[10] + u_c * cam_ref[4] + v_c * cam_ref[7]
-                   - cam_ref[1])
-            dzc = (cam_ref[11] + u_c * cam_ref[5] + v_c * cam_ref[8]
-                   - cam_ref[2])
-            octc = (jnp.where(dxc < 0, 4, 0) + jnp.where(dyc < 0, 2, 0)
-                    + jnp.where(dzc < 0, 1, 0))
-            fixed_nbase = octc.astype(jnp.int32) * dyn_nodes
-        bounce = make_bounce_body(sc_ref, nd_ref, dyn_nsph, dyn_nodes,
-                                  t_min, cfg.scatter_mode, static_leaf,
-                                  flat_leaves, unroll, dense, flat_at,
-                                  outliers=outliers, count_ref=cnt_acc,
-                                  fixed_nbase=fixed_nbase)
-        gen_ray = make_gen_ray(cam_ref, fx, fy, inv_w, inv_h)
-
-        zero = jnp.zeros(shape, jnp.float32)
-        one = zero + 1.0
-        if carry_state:
-            acc0 = (accr_in[:, :], accg_in[:, :], accb_in[:, :])
-        else:
-            acc0 = (zero, zero, zero)
-
-        if not refill:
-            # sequential samples: per-sample bounce loop with whole
-            # -tile early exit (golden.trace); _NO_EARLY_EXIT ablation
-            # runs the fixed-depth fori instead.  BIT-identical to the
-            # refill loop below — kept because its per-iteration cost
-            # is lower (no respawn logic), which wins on small scenes
-            # where the hit sweep is cheap and occupancy waste small.
-            def sample_body(s, carry):
-                acc_r, acc_g, acc_b, sd = carry
-                if parallel:
-                    sd_base = sd
-                    sd = rng.fold_in(sd, s.astype(jnp.uint32) + dyn_s0)
-                ox, oy, oz, dx, dy, dz, sd = gen_ray(sd)
-                st = (jnp.int32(0), ox, oy, oz, dx, dy, dz,
-                      one, one, one, zero, zero, zero, one, sd)
-                if _NO_EARLY_EXIT:
-                    st = jax.lax.fori_loop(0, dyn_depth,
-                                           lambda i, st: bounce(st), st)
-                else:
-                    def cond(st):
-                        return ((st[0] < dyn_depth)
-                                & (jnp.max(st[13]) > 0))
-
-                    st = jax.lax.while_loop(cond, bounce, st)
-                r, g, b, sd = st[10], st[11], st[12], st[14]
-                if parallel:
-                    sd = sd_base
-                return acc_r + r, acc_g + g, acc_b + b, sd
-
-            acc_r, acc_g, acc_b, sd_end = jax.lax.fori_loop(
-                0, dyn_spp, sample_body, (*acc0, seed))
-        else:
-            # -- persistent sample refill: the moment a lane's sample
-            # terminates (miss/absorb/depth cap) it spawns its pixel's
-            # NEXT sample in-register, so tile occupancy stays ~100%
-            # for the whole frame instead of decaying per sample round
-            # (measured: ray-alive falls to 3% by bounce 4 while 90% of
-            # tiles keep a live lane — the per-sample whole-tile early
-            # exit recovers almost nothing).  Per-lane accumulation
-            # order stays sample order and seeds derive exactly as the
-            # sequential loop's, so results are BIT-identical; the tile
-            # exits when every lane has exhausted its spp budget.
-            dyn_depth_f = dyn_depth.astype(jnp.float32) \
-                if not isinstance(dyn_depth, int) else jnp.float32(dyn_depth)
-            dyn_spp_f = dyn_spp.astype(jnp.float32) \
-                if not isinstance(dyn_spp, int) else jnp.float32(dyn_spp)
-            seed0 = seed
-            if parallel:
-                sd_init = rng.fold_in(seed0, dyn_s0)
-            else:
-                sd_init = seed0
-            iox, ioy, ioz, idx_, idy, idz, sd_i = gen_ray(sd_init)
-
-            def cond(st):
-                return jnp.max(st[12]) > 0
-
-            if multi_tile > 1:
-                # zero the output block (VMEM boots as garbage on
-                # hardware); per-lane accumulators flush into it via
-                # predicated RMW as each lane finishes a tile's spp
-                out_z = jnp.zeros((multi_tile * _TILE_H, _TILE_W),
-                                  jnp.float32)
-                r_ref[:, :] = out_z
-                g_ref[:, :] = out_z
-                b_ref[:, :] = out_z
-
-                def flush(mask, m_pl, fr, fg, fb):
-                    # the whole unrolled RMW (3 * multi_tile predicated
-                    # read-modify-writes) runs only on iterations where
-                    # SOME lane finished a tile — tile_done is rare
-                    # (once per ~spp*mean-path steps per lane), and at
-                    # large group factors the unconditional flush was
-                    # measurable
-                    @pl.when(jnp.max(jnp.where(mask, 1.0, 0.0)) > 0)
-                    def _():
-                        for m in range(multi_tile):
-                            mm = mask & (m_pl == jnp.float32(m))
-                            sl = slice(m * _TILE_H, (m + 1) * _TILE_H)
-                            for ref, v in ((r_ref, fr), (g_ref, fg),
-                                           (b_ref, fb)):
-                                cur = ref[sl, :]
-                                ref[sl, :] = jnp.where(mm, cur + v, cur)
-
-                body = make_refill_step(
-                    bounce, gen_ray, seed0, dyn_depth_f, dyn_spp_f,
-                    parallel, dyn_s0,
-                    multi=(multi_tile, block_h, py,
-                           px.astype(jnp.uint32), fy, flush))
-                st = (iox, ioy, ioz, idx_, idy, idz, one, one, one,
-                      zero, zero, zero, one, sd_i, zero, zero, *acc0,
-                      zero)
-                st = jax.lax.while_loop(cond, body, st)
-                r_ref[:, :] = _to_gamma(r_ref[:, :] * inv_spp, gamma)
-                g_ref[:, :] = _to_gamma(g_ref[:, :] * inv_spp, gamma)
-                b_ref[:, :] = _to_gamma(b_ref[:, :] * inv_spp, gamma)
-                if count_leaves:
-                    last_mt = ((ti == pl.num_programs(0) - 1)
-                               & (tj == pl.num_programs(1) - 1))
-
-                    @pl.when(last_mt)
-                    def _():
-                        for i in range(8):
-                            cnt_ref[0, i] = cnt_acc[0, i]
-                return
-
-            body = make_refill_step(bounce, gen_ray, seed0, dyn_depth_f,
-                                    dyn_spp_f, parallel, dyn_s0)
-
-            st = (iox, ioy, ioz, idx_, idy, idz, one, one, one,
-                  zero, zero, zero, one, sd_i, zero, zero, *acc0)
-            st = jax.lax.while_loop(cond, body, st)
-            acc_r, acc_g, acc_b = st[16], st[17], st[18]
-            # carried seed chain: per-lane chain after its last sample
-            # (sequential); parallel re-folds per (sample, batch), so
-            # the base pixel seed is the carried state — same as the
-            # sequential-sample loop's contract
-            sd_end = seed0 if parallel else st[13]
-
-        if carry_state:
-            # linear sums + final seed chain (progressive carried state)
-            r_ref[:, :] = acc_r
-            g_ref[:, :] = acc_g
-            b_ref[:, :] = acc_b
-            seed_out[:, :] = pltpu.bitcast(sd_end, jnp.float32)
-        else:
-            r_ref[:, :] = _to_gamma(acc_r * inv_spp, gamma)
-            g_ref[:, :] = _to_gamma(acc_g * inv_spp, gamma)
-            b_ref[:, :] = _to_gamma(acc_b * inv_spp, gamma)
-        if count_leaves:
-            last = ((ti == pl.num_programs(0) - 1)
-                    & (tj == pl.num_programs(1) - 1))
-
-            @pl.when(last)
-            def _():
-                for i in range(8):
-                    cnt_ref[0, i] = cnt_acc[0, i]
+            r_ref[...] = _to_gamma(acc_r * inv_spp, gamma)
+            g_ref[...] = _to_gamma(acc_g * inv_spp, gamma)
+            b_ref[...] = _to_gamma(acc_b * inv_spp, gamma)
 
     return kernel
 
 
-def _pack_camera(cam: Camera, cfg: RenderConfig, n_spheres: int,
-                 n_nodes: int, row0=0, spp=None, s0=0) -> jnp.ndarray:
+def pack_camera(cam: Camera) -> jnp.ndarray:
+    """(32,) f32: origin, horizontal, vertical, lower_left, u, v,
+    lens_radius, zero padding."""
     return jnp.concatenate([
         cam.origin, cam.horizontal, cam.vertical, cam.lower_left,
-        cam.u, cam.v, cam.lens_radius[None],
-        jnp.asarray([cfg.depth, spp if spp is not None else cfg.spp,
-                     n_spheres, n_nodes], jnp.float32),
-        jnp.asarray(row0, jnp.float32)[None],
-        jnp.asarray(s0, jnp.float32)[None],
-        jnp.zeros((3,), jnp.float32),
+        cam.u, cam.v, jnp.reshape(cam.lens_radius, (1,)),
+        jnp.zeros((_N_CAM - 19,), jnp.float32),
     ]).astype(jnp.float32)
 
 
-def _pack_scene(scene: Scene) -> jnp.ndarray:
-    """(9, N) f32: rows cx, cy, cz, rad, mat_type, ar, ag, ab, mat_param."""
-    return jnp.stack([
+def pack_scene(scene: Scene) -> jnp.ndarray:
+    """(N * 16,) f32, sphere-major: cx, cy, cz, r, mat_type, ar, ag,
+    ab, mat_param, zero padding."""
+    cols = jnp.stack([
         scene.center[:, 0], scene.center[:, 1], scene.center[:, 2],
         scene.radius, scene.mat_type.astype(jnp.float32),
         scene.albedo[:, 0], scene.albedo[:, 1], scene.albedo[:, 2],
         scene.mat_param,
-    ]).astype(jnp.float32)
+    ], axis=-1).astype(jnp.float32)
+    return jnp.pad(cols, ((0, 0), (0, _STRIDE - 9))).reshape(-1)
 
 
-def _pack_flat_at(packed, min_pad: int = 8):
-    """(48, n_pad) attribute matrix (_split_bf16x3 of 16 rows) for the
-    flat (t, idx) sweep's one-hot winner extraction: the permuted
-    scene's 9 rows with NaN leaf dummies zeroed (0 * NaN would poison
-    the matmul; a dummy can never win the sweep so its column is only
-    ever multiplied by 0).  ``min_pad`` lets callers align n_pad with
-    another per-sphere buffer (gradkernel's accumulator)."""
-    npm = packed.shape[1]
-    n_pad = max(min_pad, -(-npm // 8) * 8)
-    at = jnp.zeros((16, n_pad), jnp.float32)
-    at = at.at[0:9, :npm].set(jnp.nan_to_num(packed))
-    return _split_bf16x3(at), n_pad
+def _run(scene: Scene, cam: Camera, cfg: RenderConfig, interpret: bool,
+         row0=0, rows=None, block=None, s0=0, spp=None, carry=None):
+    """Run the engine over rows [row0, row0 + rows) of the cfg frame ->
+    three flat (n_pad,) planes (and seeds with ``carry``)."""
+    if cfg.rng_mode not in ("sequential", "parallel"):
+        raise ValueError(f"the engine has no rng_mode {cfg.rng_mode!r}; "
+                         "the v1 fract-sin parity mode is golden-only")
+    rows = cfg.height if rows is None else int(rows)
+    spp = cfg.spp if spp is None else int(spp)
+    n_pix = rows * cfg.width
+    blk = block_lanes(n_pix, block)
+    n_pad = -(-n_pix // blk) * blk
+    kernel = _make_kernel(cfg, scene.count, n_pix, blk, spp,
+                          carry is not None)
+    ints = jnp.zeros((8,), jnp.int32).at[0].set(
+        jnp.asarray(row0, jnp.int32)).at[1].set(
+        jnp.asarray(s0).astype(jnp.int32))
+    sc = pack_scene(scene)
+    operands = [ints, pack_camera(cam), sc]
+    whole = [pl.BlockSpec(x.shape, lambda i: (0,)) for x in operands]
+    plane = pl.BlockSpec((blk,), lambda i: (i,))
+    f32 = jax.ShapeDtypeStruct((n_pad,), jnp.float32)
+    out_shape = [f32, f32, f32]
+    if carry is not None:
+        operands += [jnp.pad(x.reshape(-1), (0, n_pad - n_pix))
+                     for x in carry]
+        whole += [plane] * 4
+        out_shape.append(jax.ShapeDtypeStruct((n_pad,), jnp.uint32))
+    return pl.pallas_call(
+        kernel,
+        grid=(n_pad // blk,),
+        in_specs=whole,
+        out_specs=[plane] * len(out_shape),
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=num_warps(blk),
+                                           num_stages=1),
+        interpret=interpret,
+        name="raytpu_engine",
+    )(*operands)
 
 
-def _mt_for(h: int, block_w: int, cfg: RenderConfig, n: int) -> int:
-    """The multi-tile group factor _render_pallas_fwd_impl will pick for
-    this (frame height, block shape) — 1 when grouping can't engage."""
-    # the strided probe layout only exists for full-width strips — the
-    # kernel's own gate (strided = _STRIDED and block_w == _TILE_W).
-    # Both RNG modes group since round 3 (sequential chains are
-    # per-pixel; a tile hop just starts the new pixel's chain).
-    if not (_MULTI_TILE > 1 and (not _NO_EARLY_EXIT)
-            and n >= _REFILL_MIN
-            and not (_STRIDED and block_w == _TILE_W)):
-        return 1
-    block_h = (_TILE_H * _TILE_W) // block_w
-    g0 = -(-h // block_h)
-    return max(d for d in range(1, _MULTI_TILE + 1) if g0 % d == 0)
+def render_rows(scene: Scene, cam: Camera, cfg: RenderConfig, row0,
+                rows: int, interpret: bool = False,
+                block: int | None = None) -> jnp.ndarray:
+    """Rows [row0, row0 + rows) of the cfg frame -> (rows, W, 3) image.
+    ``row0`` may be traced, so one compiled kernel serves every slab of
+    a sharded frame; rows past the frame render harmlessly (their seeds
+    are absolute-coordinate)."""
+    r, g, b = _run(scene, cam, cfg, interpret, row0=row0, rows=rows,
+                   block=block)
+    n = rows * cfg.width
+    return jnp.stack([r[:n], g[:n], b[:n]], axis=-1).reshape(
+        rows, cfg.width, 3)
 
 
-def _auto_block_w(cfg: RenderConfig, n: int, h: int | None = None) -> int:
-    """Auto block shape for BVH scenes: square-ish frustum tiling AND a
-    row-block count the multi-tile refill grouping divides.  Round-3
-    measured (config 4, 800x400, scripts/probe_sweepk.py): the grouping
-    is worth ~25% (183 -> 145 ms) and block 64 beats 16/32/128 once it
-    engages — but at this frame height block 32's row-block count is 13
-    (prime), so the round-2 default silently ran mt = 1.  Score = group
-    factor (capped where returns flatten) then shape preference; images
-    are bit-identical across layouts (absolute-coordinate RNG seeds)."""
-    hh = cfg.height if h is None else h
-    # Without grouping, 32 is the round-2 frustum optimum (the answer
-    # whenever no candidate can group, e.g. tiny frames).  With
-    # grouping engaged, 64 measured best in round 3 (config-4: 44.1 vs
-    # 43.2/40.1 Mrays/s) AND in the round-4 re-sweep after the fixed
-    # -octant default (config-4 @ 100 spp, probe_blockw_r4.py:
-    # 64/mt25 495.0 ms = 64.6 Mrays/s vs 32/mt13 508.2 vs 128/mt50
-    # 522.5) — so once any candidate groups, the preference order
-    # flips to 64 first.  Group returns flatten past ~4 (config-5:
-    # 64/mt4 68.6 beats 128/mt8 64.2 Mrays/s), so the mt score caps
-    # at 4.  Both RNG modes group (round 3).
-    cands = {bw: min(_mt_for(hh, bw, cfg, n), 4)
-             for bw in (16, 32, 64, 128)}
-    pref = ({64: 4, 32: 3, 128: 2, 16: 1}
-            if max(cands.values()) > 1 else
-            {32: 4, 64: 3, 128: 2, 16: 1})
-    best = max((cands[bw] * 10 + p, bw) for bw, p in pref.items())
-    return best[1]
-
-
-def _use_dense(n: int, interpret: bool, has_bvh: bool = False) -> bool:
-    """Dense hit-stage policy (see make_bounce_body): auto engages on
-    compiled kernels at scale when NO BVH was provided — it replaces
-    the brute-force loop (~3x faster at 500 spheres: the winner selects
-    and loop control go away), but measured BELOW the flat-BVH loop
-    (16-20 vs 22 Mrays/s on config 4: (n_pad, W) planes spill to VMEM
-    while the loop's whole-tile vregs stay register-resident, and dense
-    tests every sphere while the BVH culls half).  Interpret-mode (CPU
-    test) kernels keep the loop so bit-equality-vs-golden tests stay
-    exact."""
-    if _DENSE_MODE == "0":
-        return False
-    if _DENSE_MODE == "1":
-        return n <= _DENSE_MAX
-    return ((not interpret) and (not has_bvh)
-            and _DENSE_MIN <= n <= _DENSE_MAX)
-
-
-def _pack_dense(scene: Scene):
-    """VMEM operands for the dense hit stage (see make_bounce_body).
-
-    Returns ``(cl, at, n_pad)``: ``cl`` (n_pad, 8) columns [cx, cy, cz,
-    r^2] — sphere axis on SUBLANES, so ``o - c`` / ``r^2`` broadcast
-    against (1, W) ray rows; ``at`` (48, n_pad) holds the 9 attribute
-    rows as bf16x3 splits for the exact one-hot winner extraction
-    (_split_bf16x3).  Padded sphere rows carry
-    r^2 = -3e38 so their c-term is huge-positive and the discriminant
-    negative for any real ray (they can never win)."""
-    n = scene.count
-    n_pad = max(8, -(-n // 8) * 8)
-    c = scene.center.astype(jnp.float32)
-    r = scene.radius.astype(jnp.float32)
-    cl = jnp.full((n_pad, 8), 0.0, jnp.float32)
-    cl = cl.at[:n, 0:3].set(c)
-    cl = cl.at[:n, 3].set(r * r)
-    cl = cl.at[n:, 3].set(-3.0e38)                    # pads never hit
-    at = jnp.zeros((16, n_pad), jnp.float32)
-    at = at.at[0:9, :n].set(_pack_scene(scene))
-    return cl, _split_bf16x3(at), n_pad
-
-
-def _render_pallas_fwd_impl(scene: Scene, cam: Camera, cfg: RenderConfig,
-                            interpret: bool, nodes=None, perm=None,
-                            row0=0, rows=None, vma=None, block_w=_TILE_W,
-                            leaf_size=None, flat=None,
-                            count_leaves: bool = False):
-    """Render rows [row0, row0+rows) of the cfg-sized frame.
-
-    ``rows=None`` renders the whole frame.  ``row0`` may be traced (it
-    rides the camera scalar pack), so one compiled kernel serves every
-    slab of a sharded frame.  ``vma`` declares the output's varying mesh
-    axes when called inside ``jax.shard_map``.  ``block_w < 128`` maps
-    each tile to a square-ish (1024/block_w x block_w) pixel block
-    (better frustum coherence for BVH scenes); output pixels are
-    bit-identical (RNG seeds are absolute-coordinate)."""
-    h, w = (rows if rows is not None else cfg.height), cfg.width
-    block_h = (_TILE_H * _TILE_W) // block_w
-    hp = -(-h // block_h) * block_h
-    wp = -(-w // block_w) * block_w
-    grid = (hp // block_h, wp // block_w)
-    n = scene.count
-    strided = _STRIDED and block_w == _TILE_W
-
-    # multi-tile persistent refill (see _MULTI_TILE): group stacked row
-    # -tiles into one kernel instance when the refill loop is the
-    # engine (parallel RNG, row tiling).  mt=1 is the plain layout.
-    # single source of truth for the gate + divisor pick: _mt_for (it
-    # also covers the strided exclusion) — gradkernel and _auto_block_w
-    # consult the same function, so predictions can't diverge from the
-    # forward's actual grouping
-    mt = _mt_for(h, block_w, cfg, n)
-    grid = (grid[0] // mt, grid[1])
-
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    out_shape = (grid[0] * mt * _TILE_H, grid[1] * _TILE_W)
-    if vma is None:
-        out = jax.ShapeDtypeStruct(out_shape, jnp.float32)
-    else:
-        out = jax.ShapeDtypeStruct(out_shape, jnp.float32,
-                                   vma=frozenset(vma))
-    plane = pl.BlockSpec((mt * _TILE_H, _TILE_W), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM)
-    if _use_dense(n, interpret, has_bvh=nodes is not None):
-        # dense hit stage: every sphere tested as (n_pad, W) planes; a
-        # provided BVH is ignored (only reachable with RAYTPU_DENSE=1)
-        mx, at, n_pad = _pack_dense(scene)
-        kernel = _make_kernel(cfg, n, block_w=block_w, dense_pad=n_pad,
-                              strided=strided, multi_tile=mt)
-        operands = (_pack_camera(cam, cfg, n, 0, row0),
-                    _pack_scene(scene), mx, at)
-        vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
-        in_specs = [smem, smem, vmem, vmem]
-    elif nodes is None:
-        kernel = _make_kernel(cfg, n, block_w=block_w, strided=strided, multi_tile=mt)
-        operands = (_pack_camera(cam, cfg, n, 0, row0), _pack_scene(scene))
-        in_specs = [smem, smem]
-    else:
-        # spheres reordered into BVH leaf order; nodes transposed for
-        # scalar row reads
-        from raytpu.bvh import permute_scene
-        use_flat = (flat is not None
-                    and flat.shape[0] // 8 <= _FLAT_MAX_LEAVES)
-        outl = _bvh_outliers(perm, flat, leaf_size)
-        if use_flat:
-            # flat leaf-list traversal: leaf rows only, 8 octant copies
-            m = flat.shape[0] // 8
-            nd = flat
-        else:
-            # padded BVHs store 8 octant-ordered copies: walk covers one
-            m = nodes.shape[0] // 8 if leaf_size else nodes.shape[0]
-            nd = nodes
-        packed = _pack_scene(permute_scene(scene, perm))
-        if use_flat and _TIDX:
-            fat, fat_pad = _pack_flat_at(packed)
-            kernel = _make_kernel(cfg, n, n_nodes=m, block_w=block_w,
-                                  static_leaf=leaf_size,
-                                  flat_leaves=True, flat_at_pad=fat_pad,
-                                  strided=strided, outliers=outl,
-                                  multi_tile=mt,
-                                  count_leaves=count_leaves)
-            operands = (_pack_camera(cam, cfg, n, m, row0),
-                        packed, fat, nd.T.astype(jnp.float32))
-            in_specs = [smem, smem,
-                        pl.BlockSpec(memory_space=pltpu.VMEM), smem]
-        else:
-            kernel = _make_kernel(cfg, n, n_nodes=m, block_w=block_w,
-                                  static_leaf=leaf_size,
-                                  flat_leaves=use_flat,
-                                  strided=strided, outliers=outl, multi_tile=mt)
-            operands = (_pack_camera(cam, cfg, n, m, row0),
-                        packed, nd.T.astype(jnp.float32))
-            in_specs = [smem, smem, smem]
-    if count_leaves:
-        # roofline census outputs (entered leaves, bounce steps, live
-        # -lane steps — see make_bounce_body): SMEM accumulator across
-        # sequential grid steps, flushed at the last tile
-        assert flat is not None and _TIDX, \
-            "the census instruments the flat (t, idx) sweep only"
-        cnt_shape = jax.ShapeDtypeStruct((1, 8), jnp.float32)
-        r, g, b, cnt = pl.pallas_call(
-            kernel,
-            grid=grid,
-            out_shape=(out, out, out, cnt_shape),
-            in_specs=in_specs,
-            out_specs=(plane, plane, plane,
-                       pl.BlockSpec(memory_space=pltpu.SMEM)),
-            scratch_shapes=[pltpu.SMEM((1, 8), jnp.float32)],
-            interpret=interpret,
-        )(*operands)
-    else:
-        cnt = None
-        r, g, b = pl.pallas_call(
-            kernel,
-            grid=grid,
-            out_shape=(out, out, out),
-            in_specs=in_specs,
-            out_specs=(plane, plane, plane),
-            interpret=interpret,
-        )(*operands)
-    if block_w != _TILE_W:
-        # unscramble sees the tile-granular grid (multi-tile groups are
-        # laid out as mt consecutive tiles, same order as mt=1)
-        r, g, b = (_unscramble(x, (grid[0] * mt, grid[1]),
-                               block_h, block_w)
-                   for x in (r, g, b))
-    elif strided:
-        r, g, b = (_unstride(x, grid) for x in (r, g, b))
-    img = jnp.stack([r[:h, :w], g[:h, :w], b[:h, :w]], axis=-1)
-    if count_leaves:
-        return img, cnt
-    return img
-
-
-def _unstride(x, grid):
-    """Strided-interleave layout -> image layout (pure transpose):
-    lane (r, c) of tile (ti, tj) rendered pixel (ti + r*gi,
-    tj + c*gj)."""
-    gi, gj = grid
-    return (x.reshape(gi, _TILE_H, gj, _TILE_W)
-            .transpose(1, 0, 3, 2)
-            .reshape(gi * _TILE_H, gj * _TILE_W))
-
-
-def _unscramble(x, grid, block_h, block_w):
-    """Tile-block layout -> image layout (pure reshape/transpose)."""
-    gi, gj = grid
-    return (x.reshape(gi, _TILE_H, gj, _TILE_W)
-            .transpose(0, 2, 1, 3)
-            .reshape(gi, gj, block_h, block_w)
-            .transpose(0, 2, 1, 3)
-            .reshape(gi * block_h, gj * block_w))
-
-
-def _scramble(x, grid, block_h, block_w):
-    """Image layout -> tile-block layout (inverse of _unscramble; used
-    by the VJP kernel's ct/img input planes under block tiling)."""
-    gi, gj = grid
-    return (x.reshape(gi, block_h, gj, block_w)
-            .transpose(0, 2, 1, 3)
-            .reshape(gi, gj, _TILE_H, _TILE_W)
-            .transpose(0, 2, 1, 3)
-            .reshape(gi * _TILE_H, gj * _TILE_W))
-
-
-def _golden_bwd(cfg, res, ct, vis_w=0.0):
-    # Backward re-traces through the hand-structured adjoint renderer
-    # (raytpu/adjoint.py): identical forward semantics to this kernel
-    # (tests assert allclose), with an O(P*depth) backward that touches
-    # only the hit sphere per bounce — no N-sweep in reverse mode.
+def _adjoint_bwd(cfg, vis_w, res, ct):
     from raytpu import adjoint
     scene, cam = res
     _, vjp = jax.vjp(
         lambda s, c: adjoint.render_golden_adjoint(s, c, cfg, vis_w),
         scene, cam)
     ds, dc = vjp(ct)
-    ds = ds._replace(mat_type=None)  # discrete leaf: no cotangent
-    return ds, dc
+    return ds._replace(mat_type=None), dc
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5))
-def _render_pallas(scene: Scene, cam: Camera, cfg: RenderConfig,
-                   interpret: bool, block_w: int, vis_w: float):
-    return _render_pallas_fwd_impl(scene, cam, cfg, interpret,
-                                   block_w=block_w)
+def _render(scene, cam, cfg, interpret, block, vis_w):
+    return render_rows(scene, cam, cfg, 0, cfg.height, interpret, block)
 
 
-def _fwd(scene, cam, cfg, interpret, block_w, vis_w):
-    # under jax.grad, the taped backward applies when tape_plan says so
-    # (round 5): the forward runs the taping kernel — same image, plus
-    # the winner-index tape that lets the VJP skip its closest-hit
-    # sweep (87% of the classic VJP kernel's window forward)
-    from raytpu.kernels import gradkernel
-    plan = (None if interpret else
-            gradkernel.tape_plan(cfg, scene.count, vis_w=vis_w))
-    if plan is not None:
-        img, tape = gradkernel.render_tape_fwd(
-            scene, cam, cfg, plan["g_cap"], interpret=False)
-        return img, (scene, cam, img, tape)
-    img = _render_pallas_fwd_impl(scene, cam, cfg, interpret,
-                                  block_w=block_w)
-    return img, (scene, cam, img)
+def _render_fwd(scene, cam, cfg, interpret, block, vis_w):
+    return _render(scene, cam, cfg, interpret, block, vis_w), (scene, cam)
 
 
-def _bwd(cfg, interpret, block_w, vis_w, res, ct):
-    # compiled path: the fused Pallas VJP kernel (raytpu/kernels/
-    # gradkernel.py) - whole reverse sweep in VMEM.  The forward image
-    # residual elides the VJP's PASS-1 forward in parallel RNG mode;
-    # a tape residual (round 5) additionally elides the PASS-2 sweep.
-    # Interpret mode keeps the XLA adjoint (the fused kernel's
-    # interpreter is far slower than compiled XLA on CPU test sizes).
-    # vis_w > 0 adds silhouette gradients on either path.
-    if not interpret:
-        from raytpu.kernels import gradkernel
-        if len(res) == 4:
-            scene, cam, img, tape = res
-            plan = gradkernel.tape_plan(cfg, scene.count, vis_w=vis_w)
-            _, ds, dc = gradkernel.render_pallas_vjp(
-                scene, cam, cfg, ct, interpret=False, vis_w=vis_w,
-                img=img, tape=tape, tape_partial=plan["partial"])
-        else:
-            scene, cam, img = res
-            _, ds, dc = gradkernel.render_pallas_vjp(
-                scene, cam, cfg, ct, interpret=False, vis_w=vis_w,
-                img=img)
-        return ds, dc
-    scene, cam, img = res
-    return _golden_bwd(cfg, (scene, cam), ct, vis_w)
+def _render_bwd(cfg, interpret, block, vis_w, res, ct):
+    return _adjoint_bwd(cfg, vis_w, res, ct)
 
 
-_render_pallas.defvjp(_fwd, _bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(5, 6, 7, 8, 9))
-def _render_pallas_bvh(scene: Scene, cam: Camera, nodes, perm, flat,
-                       cfg: RenderConfig, interpret: bool, block_w: int,
-                       vis_w: float, leaf_size):
-    return _render_pallas_fwd_impl(scene, cam, cfg, interpret, nodes, perm,
-                                   block_w=block_w, leaf_size=leaf_size,
-                                   flat=flat)
-
-
-def _fwd_bvh(scene, cam, nodes, perm, flat, cfg, interpret, block_w,
-             vis_w, leaf_size):
-    # taped backward (round 5): see _fwd — the taping forward renders
-    # the same image while streaming the winner-index tape the VJP
-    # replays instead of re-sweeping
-    from raytpu.bvh import BVH
-    from raytpu.kernels import gradkernel
-    bvh = BVH(nodes=nodes, perm=perm, leaf_size=leaf_size, flat=flat)
-    plan = (None if interpret else
-            gradkernel.tape_plan(cfg, scene.count, bvh=bvh,
-                                 vis_w=vis_w))
-    if plan is not None:
-        img, tape = gradkernel.render_tape_fwd(
-            scene, cam, cfg, plan["g_cap"], interpret=False, bvh=bvh)
-        return img, (scene, cam, nodes, perm, flat, img, tape)
-    img = _render_pallas_fwd_impl(scene, cam, cfg, interpret, nodes, perm,
-                                  block_w=block_w, leaf_size=leaf_size,
-                                  flat=flat)
-    return img, (scene, cam, nodes, perm, flat, img)
-
-
-def _bwd_bvh(cfg, interpret, block_w, vis_w, leaf_size, res, ct):
-    scene, cam, nodes, perm, flat, img = res[:6]
-    tape = res[6] if len(res) == 7 else None
-    if not interpret:
-        from raytpu.bvh import BVH
-        from raytpu.kernels import gradkernel
-        bvh_r = BVH(nodes=nodes, perm=perm, leaf_size=leaf_size,
-                    flat=flat)
-        partial = False
-        if tape is not None:
-            partial = gradkernel.tape_plan(
-                cfg, scene.count, bvh=bvh_r, vis_w=vis_w)["partial"]
-        _, ds, dc = gradkernel.render_pallas_vjp(
-            scene, cam, cfg, ct, interpret=False, bvh=bvh_r,
-            vis_w=vis_w, img=img, tape=tape, tape_partial=partial)
-    else:
-        ds, dc = _golden_bwd(cfg, (scene, cam), ct, vis_w)
-    # BVH geometry is derived data: no cotangent (all-f32 by design)
-    return (ds, dc, jnp.zeros_like(nodes), jnp.zeros_like(perm),
-            jax.tree.map(jnp.zeros_like, flat))
-
-
-_render_pallas_bvh.defvjp(_fwd_bvh, _bwd_bvh)
-
-
-def accumulate_pallas(scene: Scene, cam: Camera, cfg: RenderConfig,
-                      acc, seed, samples0: int, spp: int,
-                      bvh=None, interpret: bool | None = None,
-                      row0=0, rows=None):
-    """One progressive batch through the megakernel -> (acc', seed').
-
-    ``acc`` (H, W, 3) linear sums and ``seed`` (H, W) u32 are the carried
-    state (raytpu/progressive.py); adds ``spp`` samples.  Sequential RNG
-    resumes each pixel's seed chain; parallel RNG derives sample streams
-    from ``samples0`` offsets (seed is passed through unchanged).
-
-    ``rows``/``row0`` accumulate a row slab of the frame (the carried
-    arrays then hold ``rows`` rows starting at absolute row ``row0``,
-    which may be traced) — the progressive analogue of
-    ``_render_pallas_fwd_impl``'s slab mode, used by the sharded
-    progressive path (raytpu/progressive.py accumulate(mesh=...)).
-    """
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
-    h, w = (cfg.height if rows is None else rows), cfg.width
-    hp = -(-h // _TILE_H) * _TILE_H
-    wp = -(-w // _TILE_W) * _TILE_W
-    grid = (hp // _TILE_H, wp // _TILE_W)
-    n = scene.count
-
-    acc = jnp.asarray(acc, jnp.float32)
-    acc_pad = jnp.zeros((hp, wp, 3), jnp.float32).at[:h, :w].set(acc)
-    seed_pad = jnp.zeros((hp, wp), jnp.uint32).at[:h, :w].set(
-        jnp.asarray(seed, jnp.uint32))
-    seed_f = jax.lax.bitcast_convert_type(seed_pad, jnp.float32)
-
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    plane = pl.BlockSpec((_TILE_H, _TILE_W), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM)
-    out = jax.ShapeDtypeStruct((hp, wp), jnp.float32)
-
-    if bvh is None:
-        kernel = _make_kernel(cfg, n, carry_state=True)
-        operands = [_pack_camera(cam, cfg, n, 0, row0=row0, spp=spp,
-                                 s0=samples0),
-                    _pack_scene(scene)]
-        in_specs = [smem, smem]
-    else:
-        from raytpu.bvh import permute_scene
-        use_flat = (bvh.flat is not None
-                    and bvh.n_leaves <= _FLAT_MAX_LEAVES)
-        m = bvh.n_leaves if use_flat else bvh.n_trav
-        nd = bvh.flat if use_flat else bvh.nodes
-        kernel = _make_kernel(cfg, n, n_nodes=m, carry_state=True,
-                              static_leaf=bvh.leaf_size,
-                              flat_leaves=use_flat,
-                              outliers=_bvh_outliers(
-                                  bvh.perm, bvh.flat, bvh.leaf_size))
-        operands = [_pack_camera(cam, cfg, n, m, row0=row0, spp=spp,
-                                 s0=samples0),
-                    _pack_scene(permute_scene(scene, bvh.perm)),
-                    nd.T.astype(jnp.float32)]
-        in_specs = [smem, smem, smem]
-    operands += [acc_pad[:, :, 0], acc_pad[:, :, 1], acc_pad[:, :, 2],
-                 seed_f]
-    in_specs += [plane, plane, plane, plane]
-
-    r, g, b, sd = pl.pallas_call(
-        kernel,
-        grid=grid,
-        out_shape=(out, out, out, out),
-        in_specs=in_specs,
-        out_specs=(plane, plane, plane, plane),
-        interpret=interpret,
-    )(*operands)
-    acc_new = jnp.stack([r[:h, :w], g[:h, :w], b[:h, :w]], axis=-1)
-    seed_new = jax.lax.bitcast_convert_type(sd[:h, :w], jnp.uint32)
-    return acc_new, seed_new
+_render.defvjp(_render_fwd, _render_bwd)
+_render_jit = jax.jit(_render, static_argnums=(2, 3, 4, 5))
 
 
 def render_pallas(scene: Scene, cam: Camera, cfg: RenderConfig,
-                  interpret: bool | None = None, bvh=None,
-                  block_w: int | None = None,
+                  interpret: bool = False, block: int | None = None,
                   vis_w: float = 0.0) -> jnp.ndarray:
-    """Full-frame Pallas render -> (H, W, 3) f32 image in [0, 1].
+    """Full-frame engine render -> (H, W, 3) f32 image in [0, 1].
 
-    ``interpret=None`` auto-selects interpreter mode off-TPU so the same
-    kernel logic is testable on the CPU mesh (SURVEY.md §4).  Pass a
-    :class:`raytpu.bvh.BVH` to accelerate large scenes via tile-coherent
-    traversal (build with ``raytpu.bvh.build_bvh(scene)``).
+    Compiles for the GPU; ``interpret=True`` runs the same kernel in the
+    Pallas interpreter (CPU tests).  ``block`` sets the lanes per
+    program (see :func:`block_lanes`); images are identical for every
+    block.  Under ``jax.grad`` the backward is the XLA adjoint's VJP;
+    ``vis_w > 0`` adds its silhouette gradients (forward unchanged)."""
+    return _render_jit(scene, cam, cfg, bool(interpret), block,
+                       float(vis_w))
 
-    ``block_w`` sets the pixel-block shape a tile covers
-    (1024/block_w x block_w); ``None`` auto-selects for BVH scenes via
-    :func:`_auto_block_w` (frustum shape x multi-tile-grouping
-    divisibility) and the plain 8 x 128 strip otherwise.
-    Output images are bit-identical across block shapes.  ``vis_w > 0``
-    adds silhouette (boundary) gradients to the backward pass (forward
-    values are unchanged) — see gradkernel/adjoint.
-    """
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
-    if block_w is None:
-        block_w = (_auto_block_w(cfg, scene.count)
-                   if bvh is not None else _TILE_W)
-    if bvh is None:
-        return _render_pallas(scene, cam, cfg, bool(interpret), block_w,
-                              float(vis_w))
-    return _render_pallas_bvh(scene, cam, bvh.nodes, bvh.perm, bvh.flat,
-                              cfg, bool(interpret), block_w,
-                              float(vis_w), bvh.leaf_size)
+
+@functools.partial(jax.jit, static_argnums=(2, 6, 7, 9))
+def accumulate_pallas(scene: Scene, cam: Camera, cfg: RenderConfig,
+                      acc, seed, samples0, spp: int,
+                      interpret: bool = False, row0=0, rows=None):
+    """One progressive batch -> (acc', seed'): add ``spp`` samples to
+    the carried (rows, W, 3) linear sums ``acc`` and (rows, W) u32
+    seeds (raytpu/progressive.py).  Sequential RNG resumes each pixel's
+    chain; parallel RNG folds global sample indices from ``samples0``
+    and passes the seeds through.  ``row0``/``rows`` select a row slab
+    (``row0`` may be traced)."""
+    rows = cfg.height if rows is None else rows
+    acc = jnp.asarray(acc, jnp.float32)
+    carry = (acc[..., 0], acc[..., 1], acc[..., 2],
+             jnp.asarray(seed, jnp.uint32))
+    r, g, b, sd = _run(scene, cam, cfg, interpret, row0=row0, rows=rows,
+                       s0=samples0, spp=spp, carry=carry)
+    n = rows * cfg.width
+    acc_new = jnp.stack([r[:n], g[:n], b[:n]], axis=-1).reshape(
+        rows, cfg.width, 3)
+    return acc_new, sd[:n].reshape(rows, cfg.width)

@@ -4,23 +4,20 @@ The reference's L2/L3 host layers (CSVersion/DxCSApp.cpp orchestration +
 CSVersion/main.cpp shell) collapse into these functions: build a Scene and a
 Camera, call :func:`render`.  Backends:
 
-- ``"golden"``    — the pure-jnp oracle (raytpu/golden.py), runs anywhere.
-- ``"pallas"``    — fused Pallas TPU megakernel (raytpu/kernels/) with
-  persistent sample refill: the fastest engine on every measured config,
-  small or large (pass a BVH for large scenes).
-- ``"wavefront"`` — EXPERIMENTAL sorted-wavefront renderer
-  (raytpu/wavefront.py).  Settled in round 4
-  (scripts/probe_wavefront_settle.py): it loses every measured config
-  by 3-5x (config-4 @ 100 spp: 18.6 vs megakernel 61.4 Mrays/s;
-  config-5: 16.8 vs 69.0), and its spp_batch-folding hypothesis is
-  REFUTED — larger folds are slower.  Kept for research (explicit
-  ``backend="wavefront"`` only); never auto-selected.
-- ``"auto"``      — pallas on TPU; golden elsewhere.
+- ``"golden"`` — the pure-jnp oracle (raytpu/golden.py), runs anywhere.
+- ``"pallas"`` — the Pallas-Triton engine (raytpu/kernels/megakernel.py):
+  one fused kernel per frame with persistent sample refill.  It compiles
+  for the GPU; ``interpret=True`` runs it in the Pallas interpreter.
+- ``"auto"``   — the engine on a GPU (or wherever ``interpret=True``
+  asks for its interpreter), golden on the CPU; any other platform is an
+  error.
 
 ``render_grad`` returns (image, pulled-back gradients) of a scalar loss over
 the image w.r.t. (scene, camera) — the differentiable-rendering surface
 (gradients of pixels w.r.t. sphere centers/radii, albedo/fuzz/IOR, camera
-pose) mandated by BASELINE.json; the reference has no equivalent.
+pose) mandated by BASELINE.json; the reference has no equivalent.  Its
+backward is the hand-structured adjoint (raytpu/adjoint.py) on every
+backend.
 """
 
 from __future__ import annotations
@@ -35,65 +32,59 @@ from raytpu.config import RenderConfig
 from raytpu.scene import Scene
 from raytpu import golden
 
+BACKENDS = ("auto", "golden", "pallas")
 
-def _backend(name: str, bvh=None, spp_batch: int = 1,
-             refill: int = 0) -> str:
-    if name != "auto":
-        return name
+
+def _backend(name: str, interpret: bool = False) -> str:
+    """Resolve a backend name for the default device's platform."""
+    if name not in BACKENDS:
+        raise ValueError(f"unknown backend: {name!r} (choose from "
+                         f"{BACKENDS})")
     platform = jax.devices()[0].platform
-    if platform == "tpu":
-        try:
-            from raytpu.kernels import megakernel  # noqa: F401
-            # the refill megakernel beats the sorted wavefront on every
-            # measured config, at every fold size (round 4, demotion
-            # measurements: scripts/probe_wavefront_settle.py) — auto
-            # never selects the wavefront; ask for it by name
+    if name == "auto":
+        if platform == "gpu" or interpret:
             return "pallas"
-        except ImportError:
+        if platform == "cpu":
             return "golden"
-    return "golden"
+        raise ValueError(f"no renderer for platform {platform!r}; "
+                         "raytpu runs on a GPU or the CPU")
+    if name == "pallas" and platform != "gpu" and not interpret:
+        raise ValueError(
+            f"the Pallas engine compiles for the GPU, not {platform!r}; "
+            "pass interpret=True to run it in the Pallas interpreter")
+    return name
 
 
 def render(scene: Scene, cam: Camera, cfg: RenderConfig,
-           backend: str = "auto", bvh=None,
-           spp_batch: int = 1, refill: int = 0) -> jnp.ndarray:
+           backend: str = "auto", interpret: bool = False,
+           vis_w: float = 0.0) -> jnp.ndarray:
     """Render -> (H, W, 3) f32 image in [0, 1].
 
     Row 0 is the bottom scanline (v = 0); use :func:`raytpu.io.save_image`
-    to write a display-oriented file.  ``bvh`` (see
-    :func:`raytpu.bvh.build_bvh`) accelerates large scenes on the pallas
-    backend; the golden backend ignores it (it is the brute-force oracle).
-    ``spp_batch > 1`` (wavefront backend, parallel RNG mode) folds that
-    many samples per pixel into the ray array for larger sort groups.
-    ``refill > 0`` (wavefront backend) selects the persistent-refill
-    wavefront: in-kernel sample respawn with a sort every ``refill``
-    bounces.
+    to write a display-oriented file.  ``interpret=True`` runs the
+    engine in the Pallas interpreter (tests on the CPU).  ``vis_w > 0``
+    gives ``jax.grad`` through the render the adjoint's silhouette
+    gradients (the image is unchanged).
     """
-    backend = _backend(backend, bvh, spp_batch, refill)
+    backend = _backend(backend, interpret)
     if cfg.rng_mode == "v1_fractsin":
         # the v1 fract-sin parity mode lives on the golden path only:
         # its float-sin draw chain is the numerical fragility the
-        # kernels' counter-based RNG exists to avoid (raytpu/rng.py)
+        # engine's counter-based RNG exists to avoid (raytpu/rng.py)
         backend = "golden"
-    if (spp_batch > 1 or refill) and backend != "wavefront":
-        raise ValueError(
-            "spp_batch > 1 / refill are wavefront-only knobs; pass "
-            "backend='wavefront' explicitly (the experimental engine "
-            "is never auto-selected — see raytpu/wavefront.py)")
     if backend == "golden":
+        if vis_w > 0:
+            from raytpu import adjoint
+            return adjoint.render_golden_adjoint(scene, cam, cfg,
+                                                 float(vis_w))
         return golden.render_golden(scene, cam, cfg)
-    if backend == "pallas":
-        from raytpu.kernels import megakernel
-        return megakernel.render_pallas(scene, cam, cfg, bvh=bvh)
-    if backend == "wavefront":
-        from raytpu.wavefront import render_wavefront
-        return render_wavefront(scene, cam, cfg, bvh=bvh,
-                                spp_batch=spp_batch, refill=refill)
-    raise ValueError(f"unknown backend: {backend!r}")
+    from raytpu.kernels import megakernel
+    return megakernel.render_pallas(scene, cam, cfg, interpret=interpret,
+                                    vis_w=vis_w)
 
 
-@functools.partial(jax.jit, static_argnums=(3, 4, 5))
-def _grad_impl(scene, cam, target, cfg, backend, vis_w, bvh=None):
+@functools.partial(jax.jit, static_argnums=(3, 4, 5, 6))
+def _grad_impl(scene, cam, target, cfg, backend, vis_w, interpret):
     def loss_fn(scene_, cam_):
         if backend == "golden":
             # hand-structured adjoint: forward bit-identical to golden,
@@ -102,8 +93,8 @@ def _grad_impl(scene, cam, target, cfg, backend, vis_w, bvh=None):
             img = adjoint.render_golden_adjoint(scene_, cam_, cfg, vis_w)
         else:
             from raytpu.kernels import megakernel
-            img = megakernel.render_pallas(scene_, cam_, cfg, vis_w=vis_w,
-                                           bvh=bvh)
+            img = megakernel.render_pallas(scene_, cam_, cfg,
+                                           interpret=interpret, vis_w=vis_w)
         loss = jnp.mean((img - target) ** 2)
         return loss, img
 
@@ -114,28 +105,21 @@ def _grad_impl(scene, cam, target, cfg, backend, vis_w, bvh=None):
 
 
 def render_grad(scene: Scene, cam: Camera, cfg: RenderConfig, target,
-                backend: str = "auto", vis_w: float = 0.0, bvh=None):
+                backend: str = "auto", vis_w: float = 0.0,
+                interpret: bool = False):
     """MSE loss against ``target`` + gradients w.r.t. (scene, camera).
 
     Returns (loss, image, (scene_grads, camera_grads)).  ``vis_w > 0``
     adds silhouette (boundary) gradients for geometry optimization —
     forward values stay the exact hard render (see raytpu/adjoint.py).
-    ``bvh`` accelerates large scenes on the pallas path (forward AND
-    the fused VJP kernel's sweeps); the golden/adjoint path ignores it.
-    NOTE for optimization loops that MOVE geometry: the BVH's boxes
-    must bound the CURRENT spheres — refresh them each step with
-    :func:`raytpu.bvh.refit` (jit-safe; `shard.make_train_step_pallas`
-    does it automatically), or a sphere that drifts outside its
-    build-time leaf box silently vanishes from renders and gradients.
+    On the engine the image comes from the engine and the backward from
+    the adjoint, so the gradients equal ``jax.grad`` through
+    :func:`render`.
     """
-    backend = _backend(backend)
+    backend = _backend(backend, interpret)
     if cfg.rng_mode == "v1_fractsin":
         raise ValueError(
             "rng_mode='v1_fractsin' is a forward reference-parity mode; "
             "use the sequential/parallel RNG modes for gradients")
-    if backend == "wavefront":
-        backend = "pallas"  # grads flow through the same fused VJP
-    if backend == "golden":
-        bvh = None  # the adjoint is the brute-force oracle
     return _grad_impl(scene, cam, jnp.asarray(target, jnp.float32),
-                      cfg, backend, float(vis_w), bvh=bvh)
+                      cfg, backend, float(vis_w), bool(interpret))

@@ -1,4 +1,4 @@
-"""Counter-based RNG — TPU-native redesign of the reference's hash RNG.
+"""Counter-based RNG — a redesign of the reference's hash RNG.
 
 The reference threads a *float* seed through every draw, advancing it by
 0.1 twice per draw and hashing the resulting f32 bit patterns

@@ -1,6 +1,6 @@
 """Scene representation and builders.
 
-The scene is a SoA PyTree of f32/i32 arrays — the TPU-native analogue of the
+The scene is a SoA PyTree of f32/i32 arrays — the JAX analogue of the
 reference's ``WorldDef`` cbuffer (ref: CSVersion/ShaderCompute.hlsl:12-19 and
 CSVersion/DxCSApp.cpp:64-70): ``spheres[512]`` float4 (xyz=center, w=radius),
 ``matTypes`` packed scalars, ``matValues`` float4 (rgb=albedo, w=fuzz|IOR).

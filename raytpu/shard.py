@@ -1,32 +1,26 @@
-"""Multi-chip / multi-host sharding — pixel tiles over a device mesh.
+"""Multi-device / multi-host sharding — pixel slabs over a device mesh.
 
 The reference's only parallelism is the GPU thread grid (one thread per
 pixel, ref: CSVersion/DxCSApp.cpp:524 Dispatch x ShaderCompute.hlsl:291
-numthreads).  The TPU-native scaling story (SURVEY.md §2.5) is:
+numthreads).  Across devices:
 
-- **pixel axis sharded** over a 1-D ``jax.sharding.Mesh`` ('px'): each chip
-  renders a contiguous slab of the flattened pixel array via
-  ``jax.shard_map``.  RNG seeds derive from *absolute* pixel coordinates
-  (raytpu/rng.py), so the image is bit-identical for every mesh size —
-  1-chip and N-host renders match exactly (SURVEY.md §7 hard-part 3).
-- **scene + camera replicated** on every chip (the analogue of the
+- **pixels sharded** over a 1-D ``jax.sharding.Mesh`` ('px'): each device
+  renders a contiguous slab of the frame via ``jax.shard_map``.  RNG seeds
+  derive from *absolute* pixel coordinates (raytpu/rng.py), so the image
+  is bit-identical for every mesh size.  The cards of one host reach each
+  other all to all over NVLink, so the mesh is 1-D: its shape follows
+  the algorithm, not a torus.
+- **scene + camera replicated** on every device (the analogue of the
   reference's cbuffer broadcast, ref: DxCSApp.cpp:393-413).
-- **gradients psum'd** over the mesh: each chip back-propagates its own
-  pixels' loss into replicated scene/camera params, then one
-  ``jax.lax.psum`` rides ICI (intra-slice) / DCN (multi-host).
-  Reduction/backward overlap is a NON-lever here, measured rather than
-  assumed (scripts/probe_overlap.py): the Pallas path's grads come out
-  of one fused VJP kernel, so the reduce's data dependency is the whole
-  kernel — and the payload is a few KB of scene/camera grads, modeled
-  at ~10 us over v5e ICI against >= 100 ms steps (< 0.02% of step
-  time).  On TPU, XLA's latency-hiding scheduler already emits async
-  all-reduce-start/done for whatever slack exists.
+- **gradients psum'd** over the mesh: each device back-propagates its own
+  pixels' loss into the replicated scene/camera parameters, then one
+  ``jax.lax.psum`` (NCCL on the GPU) reduces a few KB of gradients.
 
 Multi-host entry: call :func:`init_distributed` (a
 ``jax.distributed.initialize`` wrapper) before ``make_mesh()``; the mesh
 then spans all processes' devices and shard_map does the rest.  The
 two-process CPU test (tests/test_multihost.py) exercises this path end
-to end without pod hardware.
+to end.
 """
 
 from __future__ import annotations
@@ -52,15 +46,14 @@ def init_distributed(coordinator: str | None = None,
                      cpu_collectives: str | None = None) -> None:
     """Initialize multi-host JAX before building a mesh.
 
-    Thin wrapper over ``jax.distributed.initialize``: on TPU pods the
-    arguments auto-detect from the environment (call with no args); for
-    the CPU-backend multi-process test path pass coordinator/count/id
-    and ``cpu_collectives="gloo"``.  Safe to call once per process;
-    afterwards ``make_mesh()`` spans every process's devices and the
-    sharded renderers / train steps work unchanged (their collectives
-    ride ICI on a pod, gloo/DCN otherwise).
+    Thin wrapper over ``jax.distributed.initialize``.  Pass the
+    coordinator address (``host:port``), the process count and this
+    process's id; for the CPU-backend multi-process test path also pass
+    ``cpu_collectives="gloo"``.  Call once per process; afterwards
+    ``make_mesh()`` spans every process's devices and the sharded
+    renderers / train steps work unchanged.
 
-    Validated without a pod by tests/test_multihost.py: two CPU
+    Validated by tests/test_multihost.py: two CPU
     processes render one frame (one slab each) and psum gradients —
     both bit-match the single-process result.
     """
@@ -122,166 +115,82 @@ def render_sharded(scene: Scene, cam: Camera, cfg: RenderConfig, *,
     return colors[:n].reshape(cfg.height, cfg.width, 3)
 
 
-def render_sharded_pallas(scene: Scene, cam: Camera, cfg: RenderConfig, *,
-                          mesh: Mesh, bvh=None,
-                          interpret: bool | None = None) -> jnp.ndarray:
-    """Pallas megakernel sharded over ``mesh``: one row slab per device.
+def slab_rows(height: int, n_shards: int) -> int:
+    """Rows per device: the frame split evenly, the last slab padded
+    (the engine renders padded rows harmlessly; they are sliced off)."""
+    return -(-height // n_shards)
 
-    Each device runs the SAME compiled kernel on its slab — the absolute
-    row offset rides a camera scalar (megakernel cam slot 23), and RNG
-    keys derive from absolute pixel coords, so the image is identical to
-    the single-chip Pallas render for any mesh size.
-    """
+
+@functools.lru_cache(maxsize=16)
+def _sharded_engine(cfg: RenderConfig, mesh: Mesh, interpret: bool):
+    """One jitted sharded render per (cfg, mesh, interpret): a fresh
+    closure per call would retrace and recompile every frame."""
     from raytpu.kernels import megakernel
 
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
-    n_shards = mesh.devices.size
-    slab = -(-cfg.height // (megakernel._TILE_H * n_shards)) \
-        * megakernel._TILE_H
-    nodes = None if bvh is None else bvh.nodes
-    perm = None if bvh is None else bvh.perm
-    leaf = None if bvh is None else bvh.leaf_size
-    flat = None if bvh is None else bvh.flat
+    slab = slab_rows(cfg.height, mesh.devices.size)
 
     def shard_fn(scene, cam):
         row0 = jax.lax.axis_index(AXIS) * slab
-        return megakernel._render_pallas_fwd_impl(
-            scene, cam, cfg, interpret, nodes, perm,
-            row0=row0, rows=slab, leaf_size=leaf, flat=flat)
+        return megakernel.render_rows(scene, cam, cfg, row0, slab,
+                                      interpret)
 
     # check_vma=False: a pure per-device map with no collectives (the
-    # Pallas interpreter's internals mix varying/unvaried operands and
-    # trip the varying-axis checker; nothing here needs it)
-    img = jax.jit(jax.shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(P(), P()),
-        out_specs=P(AXIS),
-        check_vma=False,
-    ))(scene, cam)
-    return img[:cfg.height]
+    # Pallas kernel's operands mix varying and unvaried values)
+    sharded = jax.shard_map(shard_fn, mesh=mesh, in_specs=(P(), P()),
+                            out_specs=P(AXIS), check_vma=False)
+    return jax.jit(lambda scene, cam: sharded(scene, cam)[:cfg.height])
 
 
-def render_wavefront_sharded(scene: Scene, cam: Camera, cfg: RenderConfig,
-                             *, mesh: Mesh, bvh=None, segments=None,
-                             sort_every: int = 1, spp_batch: int = 1,
-                             sort_chunk: int = 65536, refill: int = 0,
-                             interpret: bool | None = None) -> jnp.ndarray:
-    """Sorted-wavefront render sharded over ``mesh``: one row slab per
-    device, each running its own independent wavefront (sort + segment
-    kernels stay device-local — zero inter-chip traffic until the final
-    concatenation).  RNG seeds and sort keys derive from ABSOLUTE pixel
-    coords, so the image bit-matches the single-chip wavefront for any
-    mesh size (asserted in tests/test_shard.py)."""
-    from raytpu import wavefront as wf
+def render_sharded_pallas(scene: Scene, cam: Camera, cfg: RenderConfig, *,
+                          mesh: Mesh, interpret: bool = False
+                          ) -> jnp.ndarray:
+    """The engine sharded over ``mesh``: one row slab per device.
 
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
-    n_shards = mesh.devices.size
-    slab = -(-cfg.height // (wf._BLOCK * n_shards)) * wf._BLOCK
-    nodes = None if bvh is None else bvh.nodes
-    perm = None if bvh is None else bvh.perm
-    leaf = None if bvh is None else bvh.leaf_size
-    flat = None if bvh is None else bvh.flat
-    if segments is None:
-        segments = wf.default_segments(cfg.depth)
-    segments = tuple(int(s) for s in segments)
+    Each device runs the SAME compiled kernel on its slab — the absolute
+    row offset is a traced kernel operand, and RNG seeds derive from
+    absolute pixel coords, so the image is identical to the single-device
+    engine render for any mesh size.
+    """
+    from raytpu.render import _backend
 
-    def shard_fn(scene, cam):
-        row0 = jax.lax.axis_index(AXIS) * slab
-        return wf._render_wavefront_impl(
-            scene, cam, nodes, perm, cfg, interpret, segments,
-            None, leaf, int(sort_every), row0=row0, rows=slab,
-            spp_batch=int(spp_batch), flat=flat,
-            sort_chunk=int(sort_chunk), refill=int(refill))
-
-    img = jax.jit(jax.shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(P(), P()),
-        out_specs=P(AXIS),
-        check_vma=False,
-    ))(scene, cam)
-    return img[:cfg.height]
+    _backend("pallas", interpret)
+    return _sharded_engine(cfg, mesh, bool(interpret))(scene, cam)
 
 
 def make_train_step_pallas(cfg: RenderConfig, mesh: Mesh,
-                           lr: float = 1e-2, bvh=None,
-                           interpret: bool | None = None,
-                           refit: bool = True,
-                           use_tape: bool | None = None):
-    """Pod-scale train step on the Pallas kernels: each device renders
-    its row slab with the forward megakernel, back-propagates the MSE
-    cotangent through the fused VJP kernel (raytpu/kernels/gradkernel),
-    and the scene/camera gradients are psum'd over the mesh.
+                           lr: float = 1e-2, interpret: bool = False):
+    """Train step on the engine: each device renders its row slab with
+    the engine, back-propagates the MSE cotangent through the XLA
+    adjoint of the same slab (raytpu/adjoint.py), and the scene/camera
+    gradients are psum'd over the mesh; then one SGD step.
 
     step(scene, cam, target) -> (scene', cam', loss) like
-    :func:`make_train_step`, at kernel speed per chip.
-
-    ``refit`` (default) recomputes the BVH's leaf boxes from the
-    CURRENT scene inside every step (:func:`raytpu.bvh.refit`): the
-    optimizer moves spheres, and a build-time box that no longer bounds
-    its sphere silently drops it from renders and gradients.  Pass
-    ``refit=False`` only for frozen-geometry losses (albedo/material
-    -only optimization).
-
-    ``use_tape`` (default: auto — on for compiled runs when
-    :func:`raytpu.kernels.gradkernel.tape_plan` applies at the slab
-    height): each shard's forward streams a per-slab winner-index tape
-    and the fused VJP replays it instead of re-running the closest-hit
-    sweep — the round-5 backward win (config-4 fwd+bwd 1.65x) at pod
-    scale.  Interpret runs default to the classic kernel.
+    :func:`make_train_step`.
     """
-    from raytpu.kernels import megakernel, gradkernel
-    from raytpu import bvh as bvh_mod
+    from raytpu import adjoint
+    from raytpu.kernels import megakernel
+    from raytpu.render import _backend
 
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
+    _backend("pallas", interpret)
     n_shards = mesh.devices.size
-    th = megakernel._TILE_H
-    slab = -(-cfg.height // (th * n_shards)) * th
+    slab = slab_rows(cfg.height, n_shards)
     h_pad = slab * n_shards
     w = cfg.width
     inv_m = 1.0 / (cfg.height * w * 3)
-    do_refit = bool(refit and bvh is not None and bvh.flat is not None
-                    and bvh.leaf_size)
-    # the scene arrives at step time; tape_plan's n only gates the
-    # refill threshold (_REFILL_MIN, 0 by default) so assume refill —
-    # if a raised threshold disables refill at trace time, the vjp's
-    # own assertion rejects the tape loudly
-    plan = gradkernel.tape_plan(cfg, 10**6, bvh=bvh, rows=slab)
-    if use_tape is None:
-        use_tape = (not interpret) and plan is not None
-    if use_tape and plan is None:
-        raise ValueError("use_tape=True but tape_plan declined "
-                         "(sequential RNG, or budget too small)")
 
     def shard_fn(scene, cam, target_slab):
-        bvh_s = bvh_mod.refit(bvh, scene) if do_refit else bvh
-        nodes = None if bvh_s is None else bvh_s.nodes
-        perm = None if bvh_s is None else bvh_s.perm
-        leaf = None if bvh_s is None else bvh_s.leaf_size
-        flat = None if bvh_s is None else bvh_s.flat
         row0 = jax.lax.axis_index(AXIS) * slab
-        tape = None
-        if use_tape:
-            img, tape = gradkernel.render_tape_fwd(
-                scene, cam, cfg, plan["g_cap"], interpret=interpret,
-                bvh=bvh_s, row0=row0, rows=slab)
-        else:
-            img = megakernel._render_pallas_fwd_impl(
-                scene, cam, cfg, interpret, nodes, perm,
-                row0=row0, rows=slab, leaf_size=leaf, flat=flat)
+        img = megakernel.render_rows(scene, cam, cfg, row0, slab,
+                                     interpret)
         # rows beyond the real image carry no loss
         valid = ((row0 + jnp.arange(slab)) < cfg.height)[:, None, None]
         diff = jnp.where(valid, img - target_slab, 0.0)
         loss = jax.lax.psum(jnp.sum(diff * diff) * inv_m, AXIS)
         ct = 2.0 * diff * inv_m
-        _, ds, dc = gradkernel.render_pallas_vjp(
-            scene, cam, cfg, ct, interpret=interpret, bvh=bvh_s,
-            row0=row0, rows=slab, img=img, tape=tape,
-            tape_partial=False if plan is None else plan["partial"])
+        _, vjp = jax.vjp(
+            lambda s, c: adjoint.render_rows_adjoint(s, c, cfg, row0, slab),
+            scene, cam)
+        ds, dc = vjp(ct)
         ds = jax.lax.psum(ds._replace(mat_type=jnp.zeros(())), AXIS)
         dc = jax.lax.psum(dc, AXIS)
         return loss, ds, dc
@@ -321,9 +230,9 @@ def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2):
     step(scene, cam, target_image) -> (scene', cam', loss): renders the
     scene with pixels sharded over the mesh, computes MSE against the
     (replicated) target, back-propagates per-shard, psums scene+camera
-    gradients over ICI/DCN, and applies one SGD step to the continuous
+    gradients over the mesh, and applies one SGD step to the continuous
     leaves.  This is the framework's "training step" — the differentiable
-    -rendering optimization loop of BASELINE config 3 at pod scale.
+    -rendering optimization loop of BASELINE config 3 across devices.
     """
     n_shards = mesh.devices.size
     px, py, n = _flat_pixel_ids(cfg, n_shards)
@@ -348,9 +257,8 @@ def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2):
         # loss is a varying per-shard partial -> explicit psum.  grads are
         # NOT psum'd here: under shard_map's varying-axis tracking the
         # transpose of "consume a replicated input" already inserts the
-        # cross-shard psum (the ICI/DCN gradient all-reduce — ~64 KB of
-        # scene/camera grads, < 0.01% of step wall; see
-        # scripts/probe_overlap.py for the compiled-HLO analysis).
+        # cross-shard psum (the gradient all-reduce of a few KB of
+        # scene/camera grads).
         loss = jax.lax.psum(loss, AXIS)
         return loss, grads
 

@@ -1,8 +1,8 @@
 """Silhouette-gradient estimator benchmark (round-3 verdict item 7).
 
 Config-3-style inverse rendering (defocus camera, recover a perturbed
-sphere center from a target image) with the loss+gradient through the
-fused Pallas VJP kernel, sweeping the silhouette weight:
+sphere center from a target image) with the loss+gradient through
+``render_grad`` (the adjoint's VJP), sweeping the silhouette weight:
 
   vis_w = 0        interior gradients only (no visibility term)
   vis_w = 0.005    the shipped one-bounce boundary-radiance estimate
@@ -14,10 +14,11 @@ one-bounce radiance estimate's bias (the boundary terms weight the
 coverage flip by an approximate radiance jump) actually slow
 convergence enough to justify a path-traced boundary estimate?
 
-Run:  python -m scripts.bench_silhouette        (TPU; background it)
-      python -m scripts.bench_silhouette cpu    (XLA adjoint path)
+Run:  python -m scripts.bench_silhouette          (default device)
+      python -m scripts.bench_silhouette cpu      (on the CPU)
 
-MEASURED (2026-08-19, v5e, 80 steps, lr 0.05 x 0.96^step):
+MEASURED (80 steps, lr 0.05 x 0.96^step; the same adjoint math through
+an earlier gradient kernel):
 
   shift   vis_w   steps_to_50%  final_loss/initial  center_err ->
   0.144   0       never         6.0 (DIVERGES)      1.20
@@ -70,9 +71,9 @@ def steps_to(losses, frac):
 
 
 def main():
-    if len(sys.argv) > 1 and sys.argv[1] == "cpu":
-        import scripts._debug_cpu  # noqa: F401
     import jax
+    if len(sys.argv) > 1 and sys.argv[1] == "cpu":
+        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     m = load_example()
     print("platform", jax.devices()[0].platform, flush=True)

@@ -26,7 +26,8 @@ CPU, ~2 min:  python scripts/compare_reference_image.py
 """
 import sys, os, json
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import scripts._debug_cpu  # noqa: F401
+import jax
+jax.config.update("jax_platforms", "cpu")  # before any jax op
 import numpy as np
 
 REF = "/root/reference/examples/12depth20rays.png"

@@ -1,19 +1,16 @@
 """Render the repo's golden example image (our deterministic analogue of
 the reference's examples/12depth20rays.png: random_world, v2 camera,
-1024x576, 20 spp, depth 12) through the Pallas+BVH path on TPU."""
+1024x576, 20 spp, depth 12) through raytpu.render (the engine on a GPU)."""
 import sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import jax
 import raytpu
-from raytpu import io, bvh
+from raytpu import io
 from raytpu.config import REFERENCE_GOLDEN
-from raytpu.kernels import megakernel
 
 cfg = REFERENCE_GOLDEN
 scene = raytpu.random_world()
 cam = raytpu.reference_camera_v2(cfg.aspect)
-b = bvh.build_bvh(scene)
-img = jax.jit(lambda s, c: megakernel.render_pallas(s, c, cfg, bvh=b))(scene, cam)
+img = raytpu.render(scene, cam, cfg)
 out = sys.argv[1] if len(sys.argv) > 1 else "examples/12depth20rays.png"
 io.save_png(out, img)
 print("wrote", out)

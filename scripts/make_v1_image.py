@@ -4,12 +4,13 @@ scene (Shader_RT.fx:300-335 via raytpu.v1_world), camera (640x480, vfov
 sqrt gamma, and the generation's literal fract-sin RNG with its by-value
 randState defect (rng_mode="v1_fractsin", golden-path only by design).
 
-Runs on CPU (the parity mode is golden-only; no TPU needed):
+Runs on CPU (the parity mode is golden-only; no GPU needed):
     python scripts/make_v1_image.py [out.png]
 """
 import sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import scripts._debug_cpu  # noqa: F401  (force CPU before any jax op)
+import jax
+jax.config.update("jax_platforms", "cpu")  # before any jax op
 import raytpu
 from raytpu import io
 from raytpu.config import REFERENCE_V1_FAITHFUL

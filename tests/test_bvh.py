@@ -170,53 +170,6 @@ def test_octant_orders_consistent():
                 assert perm[i] == perm[i0]
 
 
-def test_pallas_bvh_matches_golden():
-    """Interpret-mode megakernel with BVH == brute-force golden, bitwise."""
-    from raytpu import golden
-    from raytpu.kernels import megakernel
-    from raytpu.config import RenderConfig
-
-    cfg = RenderConfig(width=64, height=32, spp=1, depth=3)
-    scene = raytpu.random_world(seed=3, half_extent=4)
-    cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
-                             aspect=cfg.aspect)
-    want = np.asarray(golden.render_golden(scene, cam, cfg))
-    for leaf in (2, 8):
-        b = bvh_mod.build_bvh(scene, leaf_size=leaf)
-        got = np.asarray(megakernel.render_pallas(scene, cam, cfg, bvh=b))
-        np.testing.assert_array_equal(got, want)
-
-
-def test_pallas_bvh_grads_match_golden():
-    """custom_vjp on the BVH path still pulls back exact golden grads."""
-    import jax
-    from raytpu import golden
-    from raytpu.kernels import megakernel
-    from raytpu.config import RenderConfig
-
-    cfg = RenderConfig(width=32, height=16, spp=1, depth=2)
-    scene = raytpu.random_world(seed=5, half_extent=2)
-    cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
-                             aspect=cfg.aspect)
-    b = bvh_mod.build_bvh(scene, leaf_size=4)
-    target = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
-
-    def loss_p(s):
-        img = megakernel.render_pallas(s, cam, cfg, bvh=b)
-        return jnp.mean((img - target) ** 2)
-
-    def loss_g(s):
-        img = golden.render_golden(s, cam, cfg)
-        return jnp.mean((img - target) ** 2)
-
-    gp = jax.grad(loss_p, allow_int=True)(scene)
-    gg = jax.grad(loss_g, allow_int=True)(scene)
-    for k in ("center", "radius", "albedo", "mat_param"):
-        np.testing.assert_allclose(np.asarray(getattr(gp, k)),
-                                   np.asarray(getattr(gg, k)),
-                                   rtol=1e-5, atol=1e-8)
-
-
 def test_native_builder_matches_numpy():
     """C++ builder output is bit-identical to the numpy reference."""
     import pytest
@@ -274,25 +227,6 @@ def test_sah_builder_invariants_and_traversal():
             assert i_b == i_r
 
 
-def test_sah_padded_render_matches_golden():
-    """SAH BVH through the interpret-mode megakernel == golden bitwise
-    (padded octant-ordered leaves, like the default builder)."""
-    import pytest
-    from raytpu import golden, native
-    from raytpu.kernels import megakernel
-    from raytpu.config import RenderConfig
-    if native.get_lib() is None:
-        pytest.skip("native toolchain unavailable")
-    cfg = RenderConfig(width=64, height=32, spp=1, depth=3)
-    scene = raytpu.random_world(seed=3, half_extent=4)
-    cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
-                             aspect=cfg.aspect)
-    want = np.asarray(golden.render_golden(scene, cam, cfg))
-    b = bvh_mod.build_bvh(scene, leaf_size=8, builder="sah")
-    got = np.asarray(megakernel.render_pallas(scene, cam, cfg, bvh=b))
-    np.testing.assert_array_equal(got, want)
-
-
 def test_outlier_split_invariants():
     """split_outliers (default): the giant ground sphere leaves the
     tree, rides the perm tail, and the numpy oracle (which tests the
@@ -335,53 +269,6 @@ def test_outlier_split_invariants():
             assert int(perm[i_b]) == i_r
 
 
-def test_outlier_split_render_matches_golden():
-    """Split BVH through the interpret-mode megakernel == golden
-    bitwise (the always-tested tail must produce identical hits)."""
-    from raytpu import golden
-    from raytpu.kernels import megakernel
-    from raytpu.config import RenderConfig
-    cfg = RenderConfig(width=48, height=16, spp=1, depth=3)
-    scene = raytpu.final_world()
-    cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
-                             aspect=cfg.aspect)
-    want = np.asarray(golden.render_golden(scene, cam, cfg))
-    b = bvh_mod.build_bvh(scene, leaf_size=8)
-    assert b.n_outliers == 1
-    got = np.asarray(megakernel.render_pallas(scene, cam, cfg, bvh=b))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_silhouette_grads_bvh_matches_plain():
-    """vis_w (silhouette) gradients through the fused kernel are the
-    same with and without a padded BVH.  Exercises (a) the outlier tail
-    in the near-miss sweep and (b) the dyn_nsph = nk fix: with padded
-    leaves, real spheres sit at permuted rows >= count, which the
-    near-miss sweep previously skipped."""
-    import jax
-    from raytpu import golden
-    from raytpu.kernels import gradkernel
-    from raytpu.config import RenderConfig
-    cfg = RenderConfig(width=64, height=32, spp=2, depth=3)
-    scene = raytpu.random_world(seed=5, half_extent=3)
-    cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
-                             aspect=cfg.aspect)
-    img = golden.render_golden(scene, cam, cfg)
-    ct = 2.0 * np.asarray(img) / img.size
-    vis_w = 0.005
-    _, ds0, _ = gradkernel.render_pallas_vjp(scene, cam, cfg, ct,
-                                             vis_w=vis_w)
-    b = bvh_mod.build_bvh(scene, leaf_size=4)
-    assert b.n_outliers >= 1
-    _, ds1, _ = gradkernel.render_pallas_vjp(scene, cam, cfg, ct,
-                                             vis_w=vis_w, bvh=b)
-    for k in ("center", "radius"):
-        a = np.asarray(getattr(ds0, k))
-        c = np.asarray(getattr(ds1, k))
-        scale = max(np.abs(a).max(), 1e-8)
-        np.testing.assert_allclose(c, a, atol=1e-5 * scale, rtol=1e-4)
-
-
 def test_outlier_split_caps_large_populations():
     """A bimodal-radius scene (many 'outliers') must NOT split: each
     split sphere becomes a statically-unrolled unconditional test per
@@ -403,9 +290,8 @@ def test_outlier_split_caps_large_populations():
 def test_refit_restores_correctness_after_moves():
     """An optimizer that moves a sphere outside its build-time leaf box
     silently loses it (the stale-BVH bug refit exists for); refit'd
-    boxes restore exact agreement with golden."""
-    from raytpu import golden
-    from raytpu.config import RenderConfig
+    boxes restore exact agreement with the brute-force closest hit."""
+    from raytpu.camera import get_ray
     # two clusters in separate leaves (leaf 4): A in view at the
     # origin, B BEHIND the camera (never entered by any camera ray)
     spheres = [((dx, 0.3, dz), 0.4, 0, (0.6, 0.3, 0.3), 0.0)
@@ -414,23 +300,33 @@ def test_refit_restores_correctness_after_moves():
                  0.0) for dx in (-0.8, 0.8) for dz in (-0.8, 0.8)]
     scene0 = raytpu.make_scene(spheres)
     b = bvh_mod.build_bvh(scene0, leaf_size=4)
-    cfg = RenderConfig(width=48, height=24, spp=1, depth=3)
     cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0),
-                             vfov=20.0, aspect=cfg.aspect)
+                             vfov=20.0, aspect=2.0)
     # move a cluster-B sphere (leaf never entered -> stale boxes lose
     # it) squarely into the view
     moved = scene0._replace(
         center=scene0.center.at[5].set(jnp.asarray([0.0, 0.5, 0.0])),
         radius=scene0.radius.at[5].set(0.6))
-    want = np.asarray(golden.render_golden(moved, cam, cfg))
-    stale = np.asarray(raytpu.render(moved, cam, cfg, backend="pallas",
-                                     bvh=b))
-    assert np.abs(stale - want).max() > 1e-3, \
+    pm = bvh_mod.permute_scene(moved, b.perm)
+    centers = np.asarray(pm.center, np.float64)
+    radii = np.asarray(pm.radius, np.float64)
+    u, v = np.meshgrid(np.linspace(0.3, 0.7, 12), np.linspace(0.3, 0.7, 6))
+    ro, rd, _ = get_ray(cam, jnp.asarray(u.ravel(), jnp.float32),
+                        jnp.asarray(v.ravel(), jnp.float32),
+                        jnp.zeros(u.size, jnp.uint32))
+    ro = np.stack([np.asarray(x, np.float64) for x in ro], -1)
+    rd = np.stack([np.asarray(x, np.float64) for x in rd], -1)
+
+    def walk(bvh):
+        nodes = np.asarray(bvh.nodes)[:bvh.n_trav]
+        return [bvh_mod.closest_hit_numpy(nodes, centers, radii, o, d,
+                                          n_outliers=bvh.n_outliers)[1]
+                for o, d in zip(ro, rd)]
+
+    want = [_brute(centers, radii, o, d)[1] for o, d in zip(ro, rd)]
+    assert walk(b) != want, \
         "move did not exercise the stale-box path; pick another sphere"
-    reft = bvh_mod.refit(b, moved)
-    fresh = np.asarray(raytpu.render(moved, cam, cfg, backend="pallas",
-                                     bvh=reft))
-    np.testing.assert_array_equal(fresh, want)
+    assert walk(bvh_mod.refit(b, moved)) == want
 
 
 def test_refit_identity_matches_build_boxes():
@@ -448,69 +344,3 @@ def test_refit_identity_matches_build_boxes():
         np.asarray(b.nodes[is_leaf, 0:6]), rtol=0, atol=1e-5)
     # interior rows are voided to always-enter
     assert (np.asarray(r.nodes[~is_leaf, 0]) == -3.0e38).all()
-
-
-def test_refit_train_step_reduces_loss(monkeypatch):
-    """make_train_step_pallas(refit=True): geometry moves across steps
-    and the per-step refit keeps the loss decreasing (a stale BVH would
-    plateau/corrupt once spheres leave their boxes)."""
-    from raytpu import shard, golden
-    from raytpu.config import RenderConfig
-    import jax
-    cfg = RenderConfig(width=32, height=16, spp=1, depth=2,
-                       rng_mode="parallel")
-    scene_true = raytpu.random_world(seed=3, half_extent=3)
-    cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0),
-                             vfov=20.0, aspect=cfg.aspect)
-    target = golden.render_golden(scene_true, cam, cfg)
-    scene = scene_true._replace(
-        center=scene_true.center + jnp.float32(0.12))
-    b = bvh_mod.build_bvh(scene_true)
-    mesh = shard.make_mesh(jax.devices()[:2])
-    step = shard.make_train_step_pallas(cfg, mesh, lr=2.0, bvh=b)
-    losses = []
-    for _ in range(4):
-        scene, cam, loss = step(scene, cam, target)
-        losses.append(float(loss))
-    # smoke: the in-graph refit compiles, runs and stays sane across
-    # geometry updates (exactness is pinned by the tests above)
-    assert np.isfinite(losses).all()
-    assert losses[-1] <= losses[0] * 1.5, losses
-
-
-def test_octant_pick_invariance(monkeypatch):
-    """Fixed vs adaptive traversal octant: bit-identical images.
-
-    Any octant is CORRECT — the pick only orders the front-to-back
-    culling, so flipping megakernel._FIXED_OCTANT must never change a
-    pixel (regression guard for the round-4 default flip; the same
-    holds for the VJP's gradients via gradkernel._FIXED_OCTANT)."""
-    import jax
-    from raytpu import golden
-    from raytpu.kernels import megakernel, gradkernel
-    from raytpu.config import RenderConfig
-
-    cfg = RenderConfig(width=64, height=32, spp=2, depth=4,
-                       rng_mode="parallel")
-    scene = raytpu.random_world(seed=7, half_extent=4)
-    cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0),
-                             vfov=20.0, aspect=cfg.aspect)
-    b = bvh_mod.build_bvh(scene, leaf_size=8)
-    target = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
-
-    imgs, grads = [], []
-    for fixed in (True, False):
-        monkeypatch.setattr(megakernel, "_FIXED_OCTANT", fixed)
-        monkeypatch.setattr(gradkernel, "_FIXED_OCTANT", fixed)
-        imgs.append(np.asarray(
-            megakernel.render_pallas(scene, cam, cfg, bvh=b)))
-
-        def loss_p(s):
-            img = megakernel.render_pallas(s, cam, cfg, bvh=b)
-            return jnp.mean((img - target) ** 2)
-
-        grads.append(jax.grad(loss_p, allow_int=True)(scene))
-    np.testing.assert_array_equal(imgs[0], imgs[1])
-    for k in ("center", "radius", "albedo", "mat_param"):
-        np.testing.assert_array_equal(np.asarray(getattr(grads[0], k)),
-                                      np.asarray(getattr(grads[1], k)))

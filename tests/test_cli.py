@@ -22,17 +22,6 @@ def test_render_writes_png(tmp_path):
     assert log and log[0]["rays_per_sec"] > 0
 
 
-def test_render_refill_wavefront(tmp_path):
-    out = str(tmp_path / "img.png")
-    rc = cli.main(["render", "--scene", "test", "--width", "48",
-                   "--height", "32", "--spp", "2", "--depth", "2",
-                   "--backend", "wavefront", "--rng-mode", "parallel",
-                   "--refill", "2", "--out", out])
-    assert rc == 0
-    with open(out, "rb") as f:
-        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
-
-
 def test_render_progressive_checkpoint(tmp_path):
     out = str(tmp_path / "img.png")
     ckpt = str(tmp_path / "ck.npz")
@@ -77,7 +66,7 @@ def test_render_v1_fractsin_mode(tmp_path):
 def test_validate_passes(capsys):
     import json
     from raytpu.cli import main
-    assert main(["validate", "--scene", "random", "--bvh",
+    assert main(["validate", "--scene", "random",
                  "--width", "64", "--height", "32", "--spp", "1",
                  "--depth", "3"]) == 0
     rep = json.loads(capsys.readouterr().out)
@@ -104,11 +93,10 @@ def test_render_devices_sharded(tmp_path):
     outs = []
     for n in ("1", "4"):
         out = tmp_path / f"d{n}.png"
-        args = ["render", "--scene", "random", "--bvh", "--width", "64",
+        args = ["render", "--scene", "random", "--width", "64",
                 "--height", "32", "--spp", "1", "--depth", "3",
-                "--devices", n, "--out", str(out)]
-        if n == "1":
-            args += ["--backend", "pallas"]
+                "--devices", n, "--backend", "pallas", "--interpret",
+                "--out", str(out)]
         assert main(args) == 0
         outs.append(out.read_bytes())
     assert outs[0] == outs[1]
@@ -120,6 +108,6 @@ def test_render_devices_progressive(tmp_path):
     out = tmp_path / "p.png"
     assert main(["render", "--scene", "test", "--width", "48",
                  "--height", "24", "--spp", "4", "--depth", "2",
-                 "--progressive", "2", "--devices", "2",
+                 "--progressive", "2", "--devices", "2", "--interpret",
                  "--out", str(out)]) == 0
     assert out.exists()

@@ -61,3 +61,31 @@ def test_device_ms_times_a_dispatch():
     float(f(x))  # compile outside the trace
     ms = profiling.device_ms(lambda: float(f(x)), pid_match="CPU")
     assert 0 < ms < 10_000
+
+
+@pytest.mark.parametrize("events, want", [
+    ([], 0.0),
+    ([("k", 1.0, 2.0)], 2.0),
+    ([("a", 0.0, 2.0), ("b", 1.0, 2.0)], 3.0),      # overlapping
+    ([("a", 0.0, 5.0), ("b", 1.0, 1.0)], 5.0),      # nested
+    ([("a", 0.0, 1.0), ("b", 3.0, 1.0)], 2.0),      # a gap is idle
+    ([("b", 3.0, 1.0), ("a", 0.0, 1.0), ("c", 0.5, 1.0)], 2.5),
+])
+def test_busy_ms_is_the_union_of_intervals(events, want):
+    """Device busy time: kernels on several streams overlap and must not
+    count twice; gaps between them are idle."""
+    from raytpu import profiling
+    assert profiling.busy_ms(events) == pytest.approx(want)
+
+
+def test_device_events_pick_the_default_device_plane():
+    import jax
+    import jax.numpy as jnp
+    from raytpu import profiling
+
+    f = jax.jit(lambda x: jnp.sum(x * 2.0))
+    x = jnp.ones((64,), jnp.float32)
+    float(f(x))
+    evs = profiling.device_events(lambda: float(f(x)))
+    assert evs and all(len(e) == 3 and e[2] >= 0 for e in evs)
+    assert [e[2] for e in evs] == sorted((e[2] for e in evs), reverse=True)

@@ -3,10 +3,10 @@
 
 A seeded sweep over the config space — sizes (odd/prime dims hit the
 tile-padding edges), spp/depth (degenerate loop bounds), both scatter
-generations, both RNG modes, pinhole/thin-lens, gamma, brute force vs
-BVH traversal at several leaf sizes — asserting the Pallas kernel is
-BIT-identical to golden on every draw.  A final pair of draws pulls
-gradients through the fused VJP and checks them against golden's.
+generations, both RNG modes, pinhole/thin-lens, gamma — asserting the
+Pallas engine is BIT-identical to golden on every draw.  A final pair of
+draws pulls gradients through the engine's custom VJP and checks them
+against golden's.
 
 Complements the targeted tests: those pin known-tricky layouts; this
 guards the combinations nobody thought to pin.
@@ -19,7 +19,6 @@ import pytest
 
 import raytpu
 from raytpu import golden
-from raytpu import bvh as bvh_mod
 from raytpu.config import RenderConfig
 from raytpu.kernels import megakernel
 
@@ -45,31 +44,26 @@ def _draw(rng):
     cam = raytpu.make_camera(
         (13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0, aspect=cfg.aspect,
         aperture=aperture, focus_dist=10.0 if aperture else None)
-    bvh = None
-    if scene.count > 8 and rng.rand() < 0.6:
-        bvh = bvh_mod.build_bvh(
-            scene, leaf_size=int(rng.choice([4, 8, 16])))
-    return cfg, scene, cam, bvh
+    return cfg, scene, cam
 
 
 @pytest.mark.parametrize("case", range(12))
 def test_fuzz_interpret_bit_identical(case):
     rng = np.random.RandomState(1000 + case)
-    cfg, scene, cam, bvh = _draw(rng)
+    cfg, scene, cam = _draw(rng)
     want = np.asarray(golden.render_golden(scene, cam, cfg))
-    got = np.asarray(megakernel.render_pallas(scene, cam, cfg, bvh=bvh,
+    got = np.asarray(megakernel.render_pallas(scene, cam, cfg,
                                               interpret=True))
     assert np.isfinite(want).all()
     np.testing.assert_array_equal(
         got, want,
-        err_msg=f"cfg={cfg} n={scene.count} "
-                f"bvh={None if bvh is None else bvh.leaf_size}")
+        err_msg=f"cfg={cfg} n={scene.count}")
 
 
 @pytest.mark.parametrize("case", range(2))
 def test_fuzz_vjp_matches_golden(case):
     rng = np.random.RandomState(2000 + case)
-    cfg, scene, cam, bvh = _draw(rng)
+    cfg, scene, cam = _draw(rng)
     # keep the VJP draws tiny: the reverse sweep in interpret mode is
     # the slow path and exactness is what's under test, not scale
     cfg = cfg.replace(width=min(cfg.width, 48), height=min(cfg.height, 24),
@@ -77,7 +71,7 @@ def test_fuzz_vjp_matches_golden(case):
     target = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
 
     def loss_p(s):
-        img = megakernel.render_pallas(s, cam, cfg, bvh=bvh)
+        img = megakernel.render_pallas(s, cam, cfg, interpret=True)
         return jnp.mean((img - target) ** 2)
 
     def loss_g(s):
@@ -86,13 +80,11 @@ def test_fuzz_vjp_matches_golden(case):
 
     gp = jax.grad(loss_p, allow_int=True)(scene)
     gg = jax.grad(loss_g, allow_int=True)(scene)
-    # Tolerance budget, ADJUDICATED vs f64 ground truth
-    # (scripts/probe_fuzz_grads_f64.py on case 0): both f32 estimators
-    # sit 1.8-1.9e-4 abs from the f64 center grads while disagreeing
-    # only 1.1e-5 with each other — the kernel is exactly as accurate
-    # as XLA's own autodiff, and this comparison measures their SHARED
-    # accumulation noise, not a kernel defect.  The fuzz guards against
-    # MISCOMPILES (wrong indexing is O(1) error), not the noise floor.
+    # Tolerance budget, adjudicated against an f64 ground truth on case
+    # 0: both f32 estimators sit 1.8-1.9e-4 abs from the f64 center
+    # grads while disagreeing only 1.1e-5 with each other, so this
+    # comparison measures their SHARED accumulation noise.  The fuzz
+    # guards against wrong indexing (O(1) error), not the noise floor.
     for k in ("center", "radius", "albedo", "mat_param"):
         np.testing.assert_allclose(
             np.asarray(getattr(gp, k)), np.asarray(getattr(gg, k)),
@@ -103,20 +95,18 @@ def test_fuzz_vjp_matches_golden(case):
 @pytest.mark.parametrize("case", range(4))
 def test_fuzz_sharded_bit_identical(case):
     """Random configs through the row-slab shard_map: any mesh size must
-    reproduce golden BITWISE (absolute-coordinate RNG seeds + the row0
-    camera scalar make sharding invisible to pixel values)."""
+    reproduce golden BITWISE (absolute-coordinate RNG seeds + the traced
+    row0 operand make sharding invisible to pixel values)."""
     from raytpu import shard
 
     rng = np.random.RandomState(3000 + case)
-    cfg, scene, cam, bvh = _draw(rng)
+    cfg, scene, cam = _draw(rng)
     cfg = cfg.replace(width=min(cfg.width, 96), height=min(cfg.height, 64),
                       spp=min(cfg.spp, 2), depth=min(cfg.depth, 4))
     want = np.asarray(golden.render_golden(scene, cam, cfg))
     n = int(rng.choice([2, 4, 8]))
     mesh = shard.make_mesh(jax.devices()[:n])
     got = np.asarray(shard.render_sharded_pallas(
-        scene, cam, cfg, mesh=mesh, bvh=bvh))
+        scene, cam, cfg, mesh=mesh, interpret=True))
     np.testing.assert_array_equal(
-        got, want,
-        err_msg=f"cfg={cfg} n={scene.count} mesh={n} "
-                f"bvh={None if bvh is None else bvh.leaf_size}")
+        got, want, err_msg=f"cfg={cfg} n={scene.count} mesh={n}")

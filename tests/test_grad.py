@@ -203,25 +203,3 @@ def test_gradient_descent_recovers_albedo():
     assert losses[-1] < 0.2 * losses[0], losses
     err = float(jnp.abs(scene.albedo[1] - scene_true.albedo[1]).max())
     assert err < 0.15, err
-
-
-def test_render_grad_accepts_bvh():
-    """render_grad(bvh=...) routes the BVH through the pallas forward +
-    fused VJP; loss/image/grads match the no-BVH pallas path."""
-    from raytpu import bvh as bvh_mod
-    from raytpu.render import render_grad
-    cfg = RenderConfig(width=64, height=32, spp=1, depth=3)
-    scene = raytpu.random_world(seed=4, half_extent=3)
-    cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
-                             aspect=cfg.aspect)
-    target = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
-    l0, img0, (gs0, gc0) = render_grad(scene, cam, cfg, target,
-                                       backend="pallas")
-    b = bvh_mod.build_bvh(scene, leaf_size=8)
-    l1, img1, (gs1, gc1) = render_grad(scene, cam, cfg, target,
-                                       backend="pallas", bvh=b)
-    np.testing.assert_array_equal(np.asarray(img0), np.asarray(img1))
-    np.testing.assert_allclose(float(l0), float(l1), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(gs0.center),
-                               np.asarray(gs1.center), rtol=1e-5,
-                               atol=1e-7)

@@ -1,11 +1,11 @@
-"""Multi-host evidence without a pod: two CPU PROCESSES (not just a
+"""Multi-host evidence on one machine: two CPU PROCESSES (not just a
 virtual device mesh) render a sharded frame and psum gradients through
 ``shard.init_distributed`` + gloo collectives; results must bit-match
 the single-process path.
 
 Each worker owns ONE device, so every cross-device collective in the
 sharded renderer/train step really crosses a process boundary — the
-same code path a TPU pod takes over ICI/DCN.
+same code path several hosts take over their interconnect.
 """
 
 import os

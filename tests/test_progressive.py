@@ -98,8 +98,8 @@ def test_parallel_mode_batching_bit_exact():
 
 
 def test_pallas_accumulate_matches_golden():
-    """Megakernel carry-state accumulation == golden path, bit-exact,
-    in both RNG modes (and one compilation across batches)."""
+    """Engine carry-state accumulation == golden path, bit-exact, in both
+    RNG modes (and one compilation across batches)."""
     scene, cam = _scene_cam()
     for mode in ("sequential", "parallel"):
         cfg = CFG.replace(rng_mode=mode)
@@ -108,7 +108,7 @@ def test_pallas_accumulate_matches_golden():
         for step in (2, 3, 1):
             want = progressive.accumulate(scene, cam, cfg, want, step)
             got = progressive.accumulate(scene, cam, cfg, got, step,
-                                         backend="pallas")
+                                         backend="pallas", interpret=True)
         np.testing.assert_array_equal(np.asarray(got.acc),
                                       np.asarray(want.acc))
         np.testing.assert_array_equal(np.asarray(got.seed),
@@ -131,32 +131,11 @@ def test_sharded_accumulate_matches_unsharded():
         got = progressive.init_state(cfg)
         for step, mesh in ((2, mesh4), (3, mesh2), (1, None)):
             want = progressive.accumulate(scene, cam, cfg, want, step,
-                                          backend="pallas")
+                                          backend="pallas", interpret=True)
             got = progressive.accumulate(scene, cam, cfg, got, step,
-                                         backend="pallas", mesh=mesh)
+                                         backend="pallas", mesh=mesh,
+                                         interpret=True)
         np.testing.assert_array_equal(np.asarray(got.acc),
                                       np.asarray(want.acc))
         np.testing.assert_array_equal(np.asarray(got.seed),
                                       np.asarray(want.seed))
-
-
-def test_sharded_accumulate_bvh_matches_golden_image():
-    """Sharded progressive with a BVH completes to the one-shot golden
-    image (the full production recipe: mesh x BVH x carried state)."""
-    import jax
-    from raytpu import shard
-    from raytpu.bvh import build_bvh
-
-    scene = raytpu.random_world(seed=11, half_extent=3)
-    cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0),
-                             vfov=20.0, aspect=CFG.aspect)
-    cfg = CFG.replace(rng_mode="parallel")
-    bvh = build_bvh(scene, leaf_size=8)
-    mesh = shard.make_mesh(jax.devices()[:8])
-    state = progressive.init_state(cfg)
-    for state, img in progressive.render_progressive(
-            scene, cam, cfg, batch=4, backend="pallas", bvh=bvh,
-            mesh=mesh):
-        pass
-    want = np.asarray(golden.render_golden(scene, cam, cfg))
-    np.testing.assert_allclose(np.asarray(img), want, atol=2e-7)

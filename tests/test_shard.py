@@ -102,33 +102,21 @@ def test_train_step_grads_match_unsharded():
 
 
 def test_sharded_pallas_matches_golden_across_mesh_sizes():
-    """Row-slab Pallas sharding (megakernel cam slot 23 row offset) is
-    bit-identical to golden for every mesh size."""
+    """Row-slab engine sharding (traced row0 operand) is bit-identical to
+    golden for every mesh size."""
     cfg = RenderConfig(width=40, height=24, spp=2, depth=3)
     scene, cam = _scene_cam()
     want = np.asarray(golden.render_golden(scene, cam, cfg))
     for nd in (1, 2, 8):
         mesh = shard.make_mesh(jax.devices()[:nd])
         got = np.asarray(
-            shard.render_sharded_pallas(scene, cam, cfg, mesh=mesh))
+            shard.render_sharded_pallas(scene, cam, cfg, mesh=mesh,
+                                        interpret=True))
         np.testing.assert_array_equal(got, want)
 
 
-def test_sharded_pallas_bvh_matches_golden():
-    from raytpu import bvh as bvh_mod
-    cfg = RenderConfig(width=40, height=24, spp=1, depth=3)
-    scene = raytpu.random_world(seed=3, half_extent=3)
-    cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
-                             aspect=cfg.aspect)
-    want = np.asarray(golden.render_golden(scene, cam, cfg))
-    mesh = shard.make_mesh(jax.devices()[:4])
-    got = np.asarray(shard.render_sharded_pallas(
-        scene, cam, cfg, mesh=mesh, bvh=bvh_mod.build_bvh(scene)))
-    np.testing.assert_array_equal(got, want)
-
-
 def test_pallas_train_step_matches_reference_grads():
-    """Sharded kernel train step: psum'd fused-VJP gradients match
+    """Sharded engine train step: psum'd adjoint gradients match
     single-device autodiff of the golden renderer."""
     cfg = RenderConfig(width=32, height=16, spp=1, depth=2)
     scene_true, cam = _scene_cam()
@@ -138,7 +126,8 @@ def test_pallas_train_step_matches_reference_grads():
         albedo=scene_true.albedo.at[1].set(jnp.array([0.3, 0.6, 0.5])))
 
     mesh = shard.make_mesh(jax.devices()[:2])
-    step = shard.make_train_step_pallas(cfg, mesh, lr=1.0)
+    step = shard.make_train_step_pallas(cfg, mesh, lr=1.0,
+                                       interpret=True)
     s2, c2, loss = step(scene, cam, target)
     assert np.isfinite(float(loss))
 
@@ -155,36 +144,11 @@ def test_pallas_train_step_matches_reference_grads():
         assert np.abs(got - want).max() / scale < 5e-3, k
 
 
-def test_sharded_refill_wavefront_across_mesh_sizes():
-    """Row-slab sharded persistent-refill wavefront: mesh sizes must
-    agree with each other exactly (absolute-coordinate seeds/keys, per
-    -lane math independent of slab membership); vs golden the bound is
-    the refill schedule's compilation-context contraction class (see
-    tests/test_wavefront.py::test_refill_close_under_jit)."""
-    from raytpu import bvh as bvh_mod
-    cfg = RenderConfig(width=40, height=24, spp=2, depth=3,
-                       rng_mode="parallel")
-    scene = raytpu.random_world(seed=3, half_extent=3)
-    cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
-                             aspect=cfg.aspect)
-    want = np.asarray(golden.render_golden(scene, cam, cfg))
-    b = bvh_mod.build_bvh(scene)
-    imgs = []
-    for nd in (2, 8):
-        mesh = shard.make_mesh(jax.devices()[:nd])
-        got = np.asarray(shard.render_wavefront_sharded(
-            scene, cam, cfg, mesh=mesh, bvh=b, refill=1))
-        np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
-        assert np.abs(got - want).mean() < 1e-5
-        imgs.append(got)
-    np.testing.assert_array_equal(imgs[0], imgs[1])
-
-
 def test_pallas_train_step_parallel_rng_elision():
-    """Parallel-RNG sharded train step: the fused VJP receives the slab
-    forward image (PASS-1 elision) with row0-offset pixel seeds — the
-    psum'd gradients must match single-device autodiff of the golden
-    renderer in the same RNG mode."""
+    """Parallel-RNG sharded train step: per-sample streams with
+    row0-offset pixel seeds in both the engine slab and the adjoint slab
+    — the psum'd gradients must match single-device autodiff of the
+    golden renderer in the same RNG mode."""
     cfg = RenderConfig(width=32, height=16, spp=2, depth=2,
                        rng_mode="parallel")
     scene_true, cam = _scene_cam()
@@ -193,7 +157,8 @@ def test_pallas_train_step_parallel_rng_elision():
         albedo=scene_true.albedo.at[1].set(jnp.array([0.3, 0.6, 0.5])))
 
     mesh = shard.make_mesh(jax.devices()[:4])
-    step = shard.make_train_step_pallas(cfg, mesh, lr=1.0)
+    step = shard.make_train_step_pallas(cfg, mesh, lr=1.0,
+                                       interpret=True)
     s2, c2, loss = step(scene, cam, target)
     assert np.isfinite(float(loss))
 
@@ -207,83 +172,3 @@ def test_pallas_train_step_parallel_rng_elision():
         want = np.asarray(getattr(g_ref, k))
         scale = max(np.abs(want).max(), 1e-5)
         assert np.abs(got - want).max() / scale < 5e-3, k
-
-
-def test_sharded_wavefront_matches_golden_across_mesh_sizes():
-    """Row-slab wavefront sharding: each device runs its own sorted
-    wavefront; absolute pixel seeds/keys make the frame bit-identical
-    to golden for every mesh size."""
-    from raytpu import bvh as bvh_mod
-    cfg = RenderConfig(width=40, height=24, spp=2, depth=3)
-    scene = raytpu.random_world(seed=3, half_extent=3)
-    cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
-                             aspect=cfg.aspect)
-    want = np.asarray(golden.render_golden(scene, cam, cfg))
-    b = bvh_mod.build_bvh(scene)
-    imgs = []
-    for nd, bvh in ((1, None), (2, b), (8, b)):
-        mesh = shard.make_mesh(jax.devices()[:nd])
-        got = np.asarray(shard.render_wavefront_sharded(
-            scene, cam, cfg, mesh=mesh, bvh=bvh))
-        # 1-ulp: XLA fuses the non-kernel tail (gamma/scatter)
-        # differently under shard_map than in the golden jit
-        np.testing.assert_allclose(got, want, atol=3e-7, rtol=0)
-        imgs.append(got)
-    # mesh sizes must agree with each other exactly (same shard program)
-    np.testing.assert_array_equal(imgs[1], imgs[2])
-
-
-def test_sharded_refill_vjp_matches_unsharded(monkeypatch):
-    """Refill PASS 2 under shard_map (round 3): traced row0 + block
-    tiling + per-tile pixel seeds must give the same psum'd gradients
-    as the unsharded fused VJP."""
-    from raytpu import bvh as bvh_mod
-    from raytpu.kernels import megakernel, gradkernel
-    monkeypatch.setattr(megakernel, "_REFILL_MIN", 0)
-    cfg = RenderConfig(width=64, height=32, spp=2, depth=3,
-                       rng_mode="parallel")
-    scene = raytpu.random_world(seed=3, half_extent=3)
-    cam = raytpu.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0),
-                             vfov=20.0, aspect=cfg.aspect)
-    bvh = bvh_mod.build_bvh(scene)
-    img = raytpu.render(scene, cam, cfg, backend="pallas", bvh=bvh)
-    ct = 2.0 * (np.asarray(img) - 0.25) / img.size
-    _, ds_ref, dc_ref = gradkernel.render_pallas_vjp(
-        scene, cam, cfg, jnp.asarray(ct), bvh=bvh, img=img,
-        p2_refill=True)
-
-    from jax.sharding import PartitionSpec as P
-    mesh = shard.make_mesh(jax.devices()[:4])
-    th = megakernel._TILE_H
-    slab = -(-cfg.height // (th * 4)) * th
-    ct_pad = np.zeros((slab * 4, cfg.width, 3), np.float32)
-    ct_pad[:cfg.height] = ct
-    img_pad = np.zeros((slab * 4, cfg.width, 3), np.float32)
-    img_pad[:cfg.height] = np.asarray(img)
-
-    def shard_fn(scene, cam, ct_slab, img_slab):
-        row0 = jax.lax.axis_index(shard.AXIS) * slab
-        _, ds, dc = gradkernel.render_pallas_vjp(
-            scene, cam, cfg, ct_slab, bvh=bvh, row0=row0, rows=slab,
-            img=img_slab, p2_refill=True)
-        ds = jax.lax.psum(ds._replace(mat_type=jnp.zeros(())),
-                          shard.AXIS)
-        dc = jax.lax.psum(dc, shard.AXIS)
-        return ds, dc
-
-    ds, dc = jax.jit(jax.shard_map(
-        shard_fn, mesh=mesh,
-        in_specs=(P(), P(), P(shard.AXIS), P(shard.AXIS)),
-        out_specs=(P(), P()),
-        check_vma=False,
-    ))(scene, cam, jnp.asarray(ct_pad), jnp.asarray(img_pad))
-    for name in ("center", "radius", "albedo", "mat_param"):
-        a = np.asarray(getattr(ds, name))
-        b = np.asarray(getattr(ds_ref, name))
-        scale = max(np.abs(b).max(), 1e-8)
-        assert np.abs(a - b).max() / scale < 3e-5, name
-    for name in ("origin", "horizontal", "vertical", "lower_left"):
-        a = np.asarray(getattr(dc, name))
-        b = np.asarray(getattr(dc_ref, name))
-        scale = max(np.abs(b).max(), 1e-6)
-        assert np.abs(a - b).max() / scale < 3e-5, name

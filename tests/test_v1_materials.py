@@ -4,8 +4,8 @@ The v1 materials differ from v2 (ref: Shader_RT.fx:217-243 vs
 CSVersion/ShaderCompute.hlsl:207-252): hemisphere-flipped diffuse with a
 near-zero degenerate guard, saturated metal fuzz, and neither scatter
 direction normalized.  These tests pin the flag end to end: golden vs
-the independent scalar transcription, both Pallas kernels vs golden,
-and the three gradient paths vs generic autodiff.
+the independent scalar transcription, the Pallas engine vs golden, and
+the adjoint's gradients vs generic autodiff.
 """
 
 import numpy as np
@@ -16,8 +16,7 @@ import pytest
 import raytpu
 from raytpu import golden, adjoint
 from raytpu.config import RenderConfig
-from raytpu.kernels import megakernel, gradkernel
-from raytpu.wavefront import render_wavefront
+from raytpu.kernels import megakernel
 import hlsl_ref
 from test_golden import _cam_dict, _scene_dict
 
@@ -70,30 +69,9 @@ def test_v1_megakernel_bit_equals_golden():
                        scatter_mode="v1")
     scene, cam = _scene(), _cam(cfg.aspect)
     ref = np.asarray(golden.render_golden(scene, cam, cfg))
-    img = np.asarray(megakernel.render_pallas(scene, cam, cfg))
+    img = np.asarray(megakernel.render_pallas(scene, cam, cfg,
+                                              interpret=True))
     np.testing.assert_array_equal(img, ref)
-
-
-def test_v1_wavefront_matches_golden():
-    cfg = RenderConfig(width=64, height=48, spp=2, depth=5,
-                       scatter_mode="v1")
-    scene, cam = _scene(), _cam(cfg.aspect)
-    ref = np.asarray(golden.render_golden(scene, cam, cfg))
-    img = np.asarray(render_wavefront(scene, cam, cfg))
-    np.testing.assert_allclose(img, ref, rtol=0, atol=2.5e-7)
-
-
-def test_v1_refill_wavefront_matches_golden():
-    """v1 scatter semantics through the persistent-refill schedule
-    (tolerance: the refill FMA-contraction class, tests/test_wavefront
-    refill notes)."""
-    cfg = RenderConfig(width=64, height=48, spp=2, depth=5,
-                       scatter_mode="v1", rng_mode="parallel")
-    scene, cam = _scene(), _cam(cfg.aspect)
-    ref = np.asarray(golden.render_golden(scene, cam, cfg))
-    img = np.asarray(render_wavefront(scene, cam, cfg, refill=2))
-    np.testing.assert_allclose(img, ref, rtol=0, atol=2e-3)
-    assert np.abs(img - ref).mean() < 1e-5
 
 
 def test_v1_adjoint_grads_match_autodiff():
@@ -116,28 +94,3 @@ def test_v1_adjoint_grads_match_autodiff():
         a, b = np.array(getattr(ga, k)), np.array(getattr(gg, k))
         scale = max(np.abs(b).max(), 1e-8)
         assert np.abs(a - b).max() / scale < 1e-4, k
-
-
-def test_v1_gradkernel_matches_autodiff():
-    cfg = RenderConfig(width=32, height=16, spp=2, depth=3,
-                       scatter_mode="v1")
-    scene, cam = _scene(), _cam(cfg.aspect)
-    target = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
-    img_ref = golden.render_golden(scene, cam, cfg)
-    ct = 2.0 * (img_ref - target) / img_ref.size
-    img, ds, dc = gradkernel.render_pallas_vjp(scene, cam, cfg, ct)
-    np.testing.assert_allclose(np.asarray(img), np.asarray(img_ref),
-                               atol=1e-5)
-
-    def loss(s, c):
-        return jnp.mean((golden.render_golden(s, c, cfg) - target) ** 2)
-
-    gs, gc = jax.grad(loss, argnums=(0, 1), allow_int=True)(scene, cam)
-    for k in ("center", "radius", "albedo", "mat_param"):
-        a, b = np.array(getattr(ds, k)), np.array(getattr(gs, k))
-        scale = max(np.abs(b).max(), 1e-8)
-        assert np.abs(a - b).max() / scale < 2e-4, k
-    for k in ("origin", "horizontal", "vertical", "lower_left"):
-        a, b = np.array(getattr(dc, k)), np.array(getattr(gc, k))
-        scale = max(np.abs(b).max(), 1e-6)
-        assert np.abs(a - b).max() / scale < 2e-4, k
